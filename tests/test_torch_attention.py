@@ -1,0 +1,98 @@
+"""The port's flash-attention plain version against the JAX package: its XLA
+reference and its Pallas kernel, run in interpret mode as
+`tests/test_pallas.py` runs it on the CPU. On a CPU tensor the port's wrapper
+takes the plain version, so this also pins what the CUDA kernel is held to
+(`chip_smoke.py` compares the two on the card)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from video_rep_learning_tpu.ops.attention_pallas import (_attention_reference,
+                                                         _fused_forward,
+                                                         flash_attention)
+from video_rep_learning_tpu_torch.ops import attention as port
+
+torch.set_num_threads(1)
+
+# fp32 on both sides; the only difference is the summation order of the two
+# einsums and the softmax, a few fp32 ulps of values of order 1
+ATOL = 1e-5
+
+SHAPES = [(1, 8, s, 32) for s in (7, 128, 240, 300)] + \
+         [(2, 4, s, 64) for s in (7, 128, 240, 300)]
+MASKS = ["none", "padded", "masked_row"]
+
+
+@pytest.fixture
+def interpret_mode():
+    if jax.default_backend() != "tpu":
+        with pltpu.force_tpu_interpret_mode():
+            yield
+    else:
+        yield
+
+
+def _inputs(shape, mask_kind, seed=0):
+    rng = np.random.RandomState(seed)
+    B, _, S, _ = shape
+    q, k, v = (rng.randn(*shape).astype(np.float32) for _ in range(3))
+    mask = None
+    if mask_kind != "none":
+        mask = np.ones((B, S), np.float32)
+        mask[:, S - max(1, S // 4):] = 0  # trailing padding
+        if mask_kind == "masked_row":
+            mask[-1] = 0  # the last batch row attends to nothing
+    return q, k, v, mask
+
+
+def _port(q, k, v, mask, scale):
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    out, lse = port.flash_attention_fwd(t(q), t(k), t(v), t(mask), scale)
+    return out.numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_plain_attention_matches_jax_reference(shape, mask_kind):
+    q, k, v, mask = _inputs(shape, mask_kind)
+    scale = shape[-1] ** -0.5
+    out, lse = _port(q, k, v, mask, scale)
+    ref = _attention_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               None if mask is None else jnp.asarray(mask),
+                               scale)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=ATOL)
+    assert lse.shape == shape[:3] and np.isfinite(lse).all()
+    if mask_kind == "masked_row":  # uniform weights: the mean of V
+        np.testing.assert_allclose(out[-1], np.broadcast_to(
+            v[-1].mean(axis=1, keepdims=True), out[-1].shape), atol=ATOL)
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("shape", [(1, 8, 240, 32), (2, 4, 128, 64)], ids=str)
+def test_plain_attention_matches_pallas_kernel(shape, mask_kind,
+                                               interpret_mode):
+    """Output against `flash_attention`, LSE against the fused kernel's."""
+    q, k, v, mask = _inputs(shape, mask_kind, seed=1)
+    scale = shape[-1] ** -0.5
+    out, lse = _port(q, k, v, mask, scale)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    jm = None if mask is None else jnp.asarray(mask)
+    np.testing.assert_allclose(
+        out, np.asarray(flash_attention(jq, jk, jv, jm, scale)), atol=ATOL)
+    _, jlse = _fused_forward(jq, jk, jv, jm, scale)
+    np.testing.assert_allclose(lse, np.asarray(jlse)[:, :, 0, :shape[2]],
+                               atol=ATOL)
+
+
+def test_wrapper_cpu_path_counts_no_launch():
+    q, k, v, _ = _inputs((1, 8, 16, 32), "none")
+    before = port.flash_attention_fwd.launches
+    out = port.mha_with_flash(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v))
+    assert out.shape == (1, 8, 16, 32)
+    assert port.flash_attention_fwd.launches == before

@@ -1,0 +1,36 @@
+"""Evaluation task registry: the four embedding tasks and `get_tasks`.
+
+Counterpart of `video_rep_learning_tpu/evaluation/__init__.py`. Importing
+this package pulls in neither JAX nor sklearn: the two sklearn tasks import
+it when they run.
+"""
+
+from __future__ import annotations
+
+from .classification import Classification
+from .embedding import get_embeddings_dataset  # noqa: F401
+from .event_completion import EventCompletion
+from .kendalls_tau import KendallsTau
+from .retrieval import Retrieval
+
+TASK_REGISTRY = {
+    "kendalls_tau": KendallsTau,
+    "retrieval": Retrieval,
+    "classification": Classification,
+    "event_completion": EventCompletion,
+}
+
+
+def get_tasks(cfg):
+    """Split configured tasks into iterator and embedding tasks by their
+    `downstream_task` flag (all four built-ins are embedding tasks)."""
+    iterator_tasks, embedding_tasks = {}, {}
+    for name in cfg.EVAL.TASKS:
+        if name not in TASK_REGISTRY:
+            raise ValueError(f"Unknown eval task {name}")
+        task = TASK_REGISTRY[name](cfg)
+        if getattr(task, "downstream_task", False):
+            embedding_tasks[name] = task
+        else:
+            iterator_tasks[name] = task
+    return iterator_tasks, embedding_tasks

@@ -1,0 +1,125 @@
+"""Flash attention forward: the CUDA kernel, its plain PyTorch version and
+the wrapper that picks between them by the device of the tensors.
+
+Counterpart of `video_rep_learning_tpu/ops/attention_pallas.py`
+(`flash_attention`, `mha_with_flash`, `_attention_reference`). The kernel is
+`csrc/flash_attn_fwd.cu`, built with nvcc at first use (`ops/cuda_build.py`).
+
+- A CUDA tensor launches the kernel or raises: there is no fallback.
+- A CPU tensor takes `attention_reference`, the same math in plain torch.
+- Forward only: the backward kernel comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import cuda_build
+
+NEG_INF = -0.7 * torch.finfo(torch.float32).max
+HEAD_DIMS = (32, 64)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_reference(q, k, v, kv_mask=None, sm_scale=1.0):
+    """softmax(q k^T * sm_scale) v with a per-key mask, and the row
+    log-sum-exp. q (B, H, Sq, d), k and v (B, H, Sk, d), kv_mask (B, Sk)
+    nonzero = attend. Scores and the softmax are fp32 whatever the input type;
+    the output takes q's type, the LSE is fp32 (B, H, Sq)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if kv_mask is not None:
+        s = torch.where(kv_mask[:, None, None, :] != 0, s, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype), lse
+
+
+def _check_cuda_inputs(q, k, v, kv_mask):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention on CUDA is forward only; its backward kernel "
+            "comes with the CARL training slice")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must all be fp32 or bf16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (B,H,Sq,d), k = v (B,H,Sk,d); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, _, d = q.shape
+    if k.shape[0] != B or k.shape[1] != H or k.shape[3] != d:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head width {d} not supported; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if k.shape[2] < 1:
+        raise ValueError("flash_attention needs at least one key")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"grid too large: B={B}, H={H}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if kv_mask is not None and (kv_mask.shape != (B, k.shape[2])
+                                or kv_mask.device != q.device):
+        raise ValueError(f"kv_mask must be (B, Sk) = {(B, k.shape[2])} on "
+                         f"{q.device}, got {tuple(kv_mask.shape)} on "
+                         f"{kv_mask.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = cuda_build.load("flash_attn_fwd")
+    lib.vrl_flash_attn_fwd.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    lib.vrl_flash_attn_fwd.restype = ctypes.c_int
+    lib.vrl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.vrl_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_fwd(q, k, v, kv_mask=None, sm_scale=1.0):
+    """(out, lse) of masked attention; see `attention_reference` for the
+    math. CUDA tensors go through the kernel, CPU tensors through the plain
+    version. `flash_attention_fwd.launches` counts kernel launches."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, kv_mask, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _check_cuda_inputs(q, k, v, kv_mask)
+    B, H, Sq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
+    if Sq == 0:
+        return out, lse
+    lib = _library()
+    with torch.cuda.device(q.device):  # launch on the tensors' card
+        err = lib.vrl_flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, H, Sq, k.shape[2], d, _DTYPE_CODES[q.dtype],
+            float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_attn_fwd launch failed: "
+                           + lib.vrl_cuda_error_string(err).decode())
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention(q, k, v, kv_mask=None, sm_scale=1.0):
+    """softmax(q k^T * sm_scale) v with an optional per-key mask (B, Sk)."""
+    return flash_attention_fwd(q, k, v, kv_mask, sm_scale)[0]
+
+
+def mha_with_flash(q, k, v, kv_mask=None):
+    """Scaled-dot-product attention with scale 1/sqrt(d)."""
+    return flash_attention(q, k, v, kv_mask, 1.0 / math.sqrt(q.shape[-1]))
