@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
 kernels from the checkout, holds each against its plain PyTorch version,
-drives the CARL embedding path end to end at full model width, and compares
-the card's embeddings with the CPU's.
+drives the CARL embedding and training paths end to end at full model width,
+and compares the card with the CPU on both.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. build: nvcc builds `video_rep_learning_tpu_torch/csrc/*.cu`;
-3. kernel vs plain: flash-attention forward in fp32 and bf16 at the CARL
-   shapes, a long key range, padded keys and a fully masked row;
-4. main path: `python -m video_rep_learning_tpu_torch.evaluate`'s function on a
-   synthetic Pouring set with a full-width CARL model (seeded weights) and the
-   kendalls_tau + retrieval tasks; checks launches, finiteness, unit norm and
-   frame counts; reports frames/s;
-5. card vs CPU: one 96-frame video through the whole path in fp32.
+2. build: nvcc builds every `video_rep_learning_tpu_torch/csrc/*.cu`, one
+   compiler per source, all at once;
+3. kernel vs plain, and times beside the plain version, the bound and the
+   library call where there is one:
+   - flash-attention forward and backward in fp32 and bf16 at the CARL
+     shapes, a long key range, padded keys and a fully masked row;
+   - crop+photometric and photometric at the CARL training shape
+     (2 views x 240 frames of 256x256 uint8 -> 224), every flag, blur sigma
+     0.1 and 2.0, a padded canvas, fp32 and bf16 output;
+4. eval path: `python -m video_rep_learning_tpu_torch.evaluate`'s function on
+   a synthetic Pouring set with a full-width CARL model (seeded weights) and
+   the kendalls_tau + retrieval tasks; checks launches, finiteness, unit
+   norm and frame counts; reports frames/s;
+5. training path: `python -m video_rep_learning_tpu_torch.train`'s function,
+   one epoch over the 6 train videos and a checkpoint, then
+   `--continue_train` for a second epoch from it; checks the loss, which
+   parameters moved, the kernels' launches; reports warm ms per step and
+   clips/s, and profiles one warm step;
+6. card vs CPU: one 96-frame video through the eval path, and one training
+   step in fp32 (the path of the photometric-only kernel), same weights and
+   same sampled augmentation on both, with layer4 checked once more in fp64.
 
 The last two lines of stdout are a JSON object with one entry per kernel,
 then `{"ok": true, "device": {...}}`. Work files go to `build/chip_smoke/`.
@@ -28,6 +41,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -38,6 +52,8 @@ CFG_FILE = os.path.join(REPO, "configs", "scl_transformer_config.yml")
 SEED = 0
 # the CARL eval path gives the encoder (1, 8, n, 32) fp32 with n <= 1000
 CARL_TIMING_SHAPES = [(1, 8, 240, 32), (1, 8, 1000, 32)]
+# and the training path (2 views, 8 heads, 240 frames, 32) fp32
+TRAIN_ATTN_SHAPE = (2, 8, 240, 32)
 TOL = {  # max |kernel - plain(fp32)|
     # fp32: the same fp32 math summed in another order
     (torch.float32, "out"): 1e-5, (torch.float32, "lse"): 1e-4,
@@ -46,6 +62,32 @@ TOL = {  # max |kernel - plain(fp32)|
     (torch.bfloat16, "out"): 1.6e-2, (torch.bfloat16, "lse"): 1e-4,
 }
 CARD_VS_CPU_TOL = 1e-3  # unit-norm embeddings, fp32 on both, TF32 off
+# flash backward, max |kernel - plain| over each gradient tensor, relative to
+# its largest value (at least 1). fp32: the same fp32 math summed in another
+# order over up to 6000 keys. bf16: the kernel rounds dq, dk, dv to bf16 (an
+# ulp of |g| < 4 is 2^-6), and p and ds to bf16 before their products, as
+# the plain version does, so a value near a rounding boundary may land one
+# ulp apart
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3.2e-2}
+# augmentation, max |kernel - plain| in normalised units. fp32: the same fp32
+# math in another order (the resample and blur sums, the contrast mean), then
+# /0.224, far under one uint8 level (1 / 255 / 0.224 = 0.0175). bf16 output:
+# one bf16 ulp of |x| < 4 (2^-6), since the fp32 values may sit either side
+# of a rounding boundary
+AUG_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+# one fp32 training step, card vs CPU (TF32 off on the card), over frames
+# that differ in colour and contrast: frames in normalised units (as
+# AUG_TOL); the loss relative; each gradient tensor of the head (FC+BN,
+# encoder, embedding, projection) relative to its largest value (at least
+# 1), 2e-3: the same fp32 math summed in another order. fp32 does not
+# determine layer4's gradients that far at the seeded random weights: the
+# CPU's own fp32 layer4 gradients lie up to ~1e-1 of their largest value
+# from its fp64 ones on the same inputs (printed every run, with the card's).
+# So layer4 is held in fp64: its forward and backward on the CPU step's
+# layer3 features and upstream gradient, card vs CPU, to 1e-8 (fp64
+# rounding, 2^-53, times the ~1e6 by which fp32 shows these sums amplify
+# rounding: ~1e-10)
+STEP_TOL = {"frames": 1e-4, "loss": 1e-4, "grads": 2e-3, "layer4_fp64": 1e-8}
 
 
 def log(msg):
@@ -82,29 +124,29 @@ def phase_environment():
 
 
 def phase_build():
+    """One nvcc per source, all started together."""
     from video_rep_learning_tpu_torch.ops import cuda_build
 
+    names = sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
     t0 = time.time()
-    built = not cuda_build.library_path("flash_attn_fwd").exists()
-    so = cuda_build.build("flash_attn_fwd")
-    log(f"build flash_attn_fwd: {'built' if built else 'found'} {so.name} in "
-        f"{time.time() - t0:.2f} s")
-    log_path = so.with_name(so.name + ".log")
-    if log_path.exists():
-        for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+    with ThreadPoolExecutor(len(names)) as ex:
+        libs = dict(zip(names, ex.map(cuda_build.build, names)))
+    log(f"build {', '.join(names)}: {time.time() - t0:.2f} s in parallel")
+    for name, so in libs.items():
+        log_path = so.with_name(so.name + ".log")
+        if log_path.exists():
+            for line in log_path.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas {name}: " + line.strip())
 
 
 def make_synthetic_set():
+    from video_rep_learning_tpu_torch.data.synthetic import make_pouring
+
     data = os.path.join(WORK, "data", "pouring")
     shutil.rmtree(WORK, ignore_errors=True)
-    subprocess.run(
-        [sys.executable, os.path.join(REPO, "tools", "make_synthetic_data.py"),
-         "--out", data, "--num_train", "6", "--num_val", "6",
-         "--min_len", "150", "--max_len", "600", "--size", "256",
-         "--format", "npy", "--seed", str(SEED)],
-        check=True, cwd=REPO, stdout=subprocess.DEVNULL)
+    make_pouring(data, num_train=6, num_val=6, min_len=150, max_len=600,
+                 size=256, seed=SEED)
     lens = []
     for split in ("train", "val"):
         with open(os.path.join(data, f"{split}.pkl"), "rb") as f:
@@ -155,7 +197,6 @@ def phase_kernel_vs_plain(main_lens):
             if dtype == torch.float32 and not masked:
                 main_err = max(main_err, e_out)
 
-    times = {}
     for shape in CARL_TIMING_SHAPES:
         q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
         scale = shape[-1] ** -0.5
@@ -163,12 +204,192 @@ def phase_kernel_vs_plain(main_lens):
         plain = lambda: attention_reference(q, k, v, None, scale)  # noqa: E731
         # alternate plain, kernel, kernel, plain: both see the same clocks
         p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
-        times[shape] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"time {shape} fp32: flash_attn_fwd kernel {times[shape][0]:.4f} ms"
-            f" ({k1:.4f}, {k2:.4f})")
-        log(f"time {shape} fp32: plain attention_reference "
-            f"{times[shape][1]:.4f} ms ({p1:.4f}, {p2:.4f})")
-    return main_err, times[CARL_TIMING_SHAPES[-1]]
+        log(f"time {shape} fp32 no mask: flash_attn_fwd kernel "
+            f"{(k1 + k2) / 2:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+            f"attention_reference {(p1 + p2) / 2:.4f} ms ({p1:.4f}, {p2:.4f})")
+    return main_err
+
+
+def timed(kern, plain, library=None):
+    """Kernel, plain and library times in turns (plain, kernel, kernel, plain,
+    then the library call twice), each the mean of its two runs."""
+    p1, k1, k2, p2 = (cuda_ms(f, reps=20) for f in (plain, kern, kern, plain))
+    lib = None if library is None else (cuda_ms(library, reps=20)
+                                        + cuda_ms(library, reps=20)) / 2
+    return (k1 + k2) / 2, (p1 + p2) / 2, lib
+
+
+def phase_attention_backward():
+    """flash_attn_bwd against `attention_backward_reference` on the same
+    forward outputs, then the training-shape times of both directions."""
+    import torch.nn.functional as F
+
+    from video_rep_learning_tpu_torch.ops.attention import (
+        attention_backward_reference, attention_reference, flash_attention_bwd,
+        flash_attention_fwd)
+    from video_rep_learning_tpu_torch.ops.bounds import (attention_bwd,
+                                                         attention_fwd, bound)
+
+    g = torch.Generator().manual_seed(SEED + 1)
+    cases = [(2, 8, 240, 32), (1, 8, 1000, 32), (1, 8, 6000, 32), (2, 4, 200, 64)]
+    main_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in cases:
+            B, H, S, d = shape
+            q, k, v, dout = (torch.randn(shape, generator=g).to("cuda", dtype)
+                             for _ in range(4))
+            mask = (torch.rand(B, S, generator=g) > 0.1).float()
+            mask[:, S - S // 8:] = 0  # padded keys
+            if B > 1:
+                mask[1] = 0  # a batch row that attends to nothing
+            mask = mask.cuda()
+            out, lse = flash_attention_fwd(q, k, v, mask, d ** -0.5)
+            got = flash_attention_bwd(q, k, v, mask, out, lse, dout, d ** -0.5)
+            torch.cuda.synchronize()
+            want = attention_backward_reference(q, k, v, mask, out, lse, dout,
+                                                d ** -0.5)
+            errs = [(a.float() - b.float()).abs().max().item()
+                    / max(1.0, b.float().abs().max().item())
+                    for a, b in zip(got, want)]
+            ok = max(errs) <= BWD_TOL[dtype] and all(
+                bool(torch.isfinite(a.float()).all()) for a in got)
+            log(f"kernel vs plain flash_attn_bwd {str(dtype)[6:]:8s} {shape} "
+                f"masked: dq/dk/dv err {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
+                f"(tol {BWD_TOL[dtype]:.1e} of max|g|) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attn_bwd disagrees at {shape} {dtype}")
+            if dtype == torch.float32 and shape == TRAIN_ATTN_SHAPE:
+                main_err = max(errs)
+
+    # the training path's shape: (2 views, 8 heads, 240 frames, 32) fp32
+    B, H, S, d = TRAIN_ATTN_SHAPE
+    q, k, v, dout = (torch.randn(TRAIN_ATTN_SHAPE, generator=g).cuda()
+                     for _ in range(4))
+    mask = torch.ones(B, S, device="cuda")
+    mask[:, S - S // 8:] = 0
+    scale = d ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, mask, scale)
+    entries = {}
+    ms, plain_ms, lib_ms = timed(
+        lambda: flash_attention_fwd(q, k, v, mask, scale),
+        lambda: attention_reference(q, k, v, mask, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v))
+    keys = int(mask.sum())  # the masked keys need no work
+    b_ms, b_by = bound(*attention_fwd(B, H, S, d, keys=keys))
+    entries["flash_attn_fwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=lib_ms)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg).backward(dout)
+
+    ms, plain_ms, lib_ms = timed(
+        lambda: flash_attention_bwd(q, k, v, mask, out, lse, dout, scale),
+        lambda: attention_backward_reference(q, k, v, mask, out, lse, dout, scale),
+        sdpa_fwd_bwd)
+    b_ms, b_by = bound(*attention_bwd(B, H, S, d, keys=keys))
+    entries["flash_attn_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=lib_ms,
+                                     max_abs_err=main_err)
+    for name, e in entries.items():
+        log(f"time {TRAIN_ATTN_SHAPE} fp32 masked: {name} kernel {e['ms']:.4f} ms, "
+            f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}), library (scaled_dot_product_attention, no mask"
+            f"{', fwd+bwd' if name.endswith('bwd') else ''}) {e['library_ms']:.4f} ms")
+    return entries
+
+
+def _sampled(gen, BV, H, W, S, dims=None):
+    from video_rep_learning_tpu_torch.ops.augment import (AugmentParams,
+                                                          sample_ssl_batch)
+
+    s = sample_ssl_batch(gen, BV // 2, 2, H, W, dims, AugmentParams(image_size=S))
+    return {k: t.cuda() for k, t in s.items()}
+
+
+def phase_augment():
+    """crop_photometric and photometric against their plain versions: every
+    flag combination (16 views, one per combination) with blur sigma 0.1 and
+    2.0 and the four contrast positions, on a padded canvas; then the
+    training shape with sampled values, checked and timed."""
+    from video_rep_learning_tpu_torch.ops.bounds import bound, photometric_flops
+    from video_rep_learning_tpu_torch.ops.photometric import (
+        crop_photometric, crop_photometric_reference, photometric,
+        photometric_reference)
+
+    g = torch.Generator().manual_seed(SEED + 2)
+    S = 224
+    max_err = {"crop_photometric": 0.0, "photometric": 0.0}
+
+    def check(name, got, want, dtype, what):
+        err = (got.float() - want.float()).abs().max().item()
+        ok = err <= AUG_TOL[dtype] and bool(torch.isfinite(got.float()).all())
+        log(f"kernel vs plain {name} {str(dtype)[6:]:8s} {what}: err {err:.3e} "
+            f"(tol {AUG_TOL[dtype]:.1e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees ({what}, {dtype})")
+        if dtype == torch.float32:
+            max_err[name] = max(max_err[name], err)
+
+    # every flag combination, on a canvas whose true extent is smaller
+    BV, T, H, W = 16, 6, 256, 256
+    s = _sampled(g, BV, H, W, S, dims=[[200, 240]] * (BV // 2))
+    combos = torch.tensor([[(i >> b) & 1 for b in range(4)] for i in range(BV)],
+                          dtype=torch.float32)
+    s["fscal"][:, [0, 5, 6, 7]] = combos.cuda()
+    s["orders"] = torch.stack([torch.roll(torch.tensor([1, 0, 2, 3]), i % 4)
+                               for i in range(BV)]).to("cuda", torch.int32)
+    from video_rep_learning_tpu_torch.ops.augment import ssl_matrices
+
+    sig = torch.tensor([0.1, 2.0] * (BV // 2))
+    s.update({k: t.cuda() for k, t in ssl_matrices(s["boxes"].cpu(), sig, H, W,
+                                                   S).items()})
+    videos = torch.randint(0, 256, (BV, T, 3, H, W), generator=g,
+                           dtype=torch.uint8).cuda()
+    videos[..., 200:, :] = 0
+    videos[..., 240:] = 0
+    x = torch.rand(BV, T, 3, S, S, generator=g).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (videos, s["rh"], s["rw"], s["fscal"], s["orders"], s["mh"], s["mw"])
+        check("crop_photometric", crop_photometric(*args, out_dtype=dtype),
+              crop_photometric_reference(*args, out_dtype=dtype), dtype,
+              "16 flag combinations, sigma 0.1/2.0, padded canvas")
+        args = (x, s["fscal"], s["orders"], s["mh"], s["mw"])
+        check("photometric", photometric(*args, out_dtype=dtype),
+              photometric_reference(*args, out_dtype=dtype), dtype,
+              "16 flag combinations, sigma 0.1/2.0")
+
+    # the training shape: 2 views x 240 frames, 256x256 uint8 -> 224
+    BV, T = 2, 240
+    entries = {}
+    s = _sampled(g, BV, H, W, S)
+    s["fscal"][:, 0] = 1  # jitter on in both views: the contrast pre-pass runs
+    videos = torch.randint(0, 256, (BV, T, 3, H, W), generator=g,
+                           dtype=torch.uint8).cuda()
+    x = torch.rand(BV, T, 3, S, S, generator=g).cuda()
+    log(f"training-shape views: fscal {s['fscal'].cpu().tolist()}")
+    for name, kern, plain, args, crop, dtype, in_bytes in (
+            ("crop_photometric", crop_photometric, crop_photometric_reference,
+             (videos, s["rh"], s["rw"]), (s["rh"], s["rw"]), torch.bfloat16,
+             videos.numel()),
+            ("photometric", photometric, photometric_reference, (x,), (),
+             torch.float32, 4 * x.numel())):
+        full = args + (s["fscal"], s["orders"], s["mh"], s["mw"])
+        for dt in (torch.float32, torch.bfloat16):
+            check(name, kern(*full, out_dtype=dt), plain(*full, out_dtype=dt), dt,
+                  f"({BV}, {T}, 3, {args[0].shape[-2]}, {args[0].shape[-1]}) -> {S}")
+        ms, plain_ms, _ = timed(lambda: kern(*full, out_dtype=dtype),
+                                lambda: plain(*full, out_dtype=dtype))
+        out_bytes = BV * T * 3 * S * S * (2 if dtype == torch.bfloat16 else 4)
+        b_ms, b_by = bound(in_bytes + out_bytes,
+                           photometric_flops(s["fscal"], T, S, *crop))
+        entries[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None,
+                             max_abs_err=max_err[name])
+        log(f"time {name} ({BV}, {T}) -> {S} {str(dtype)[6:]} out: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"library none")
+    return entries
 
 
 class EmbeddingCheck:
@@ -231,7 +452,7 @@ def phase_main_path(data_root, card):
         f"(model build, checkpoint load, cuDNN warm-up, both splits, tasks)")
     log(f"main path: flash_attn_fwd launches {launches}")
     if launches <= 0:
-        raise AssertionError("the main path never launched flash_attn_fwd")
+        raise AssertionError("the eval path never launched flash_attn_fwd")
     if len(EmbeddingCheck.seen) != 2:
         raise AssertionError("the embedding check did not run")
     for split, frames, norm_err in EmbeddingCheck.seen:
@@ -288,6 +509,304 @@ def phase_card_vs_cpu(data_root, logdir):
         raise AssertionError("card and CPU embeddings disagree")
 
 
+def _launch_counters():
+    from video_rep_learning_tpu_torch.ops import attention, photometric
+
+    return {"flash_attn_fwd": attention.flash_attention_fwd,
+            "flash_attn_bwd": attention.flash_attention_bwd,
+            "crop_photometric": photometric.crop_photometric,
+            "photometric": photometric.photometric}
+
+
+def _reset_launches():
+    for fn in _launch_counters().values():
+        fn.launches = 0
+
+
+def _read_launches():
+    return {name: fn.launches for name, fn in _launch_counters().items()}
+
+
+def phase_train_path(data_root, card):
+    """`python -m video_rep_learning_tpu_torch.train` at full width: one epoch
+    over the 6 train videos with a checkpoint, then `--continue_train` for a
+    second epoch resumed from it."""
+    from video_rep_learning_tpu_torch.models import build_model
+    from video_rep_learning_tpu_torch.train.cli import main as train_main
+
+    logdir = os.path.join(WORK, "train_logs")
+
+    def argv(epochs, *flags):
+        return ["--workdir", data_root, "--logdir", logdir, "--cfg_file",
+                CFG_FILE, "--device", "cuda", *flags, "--opts", *smoke_opts(
+                    ["TRAIN.MAX_EPOCHS", str(epochs), "LOGGING.REPORT_INTERVAL",
+                     "3", "RNG_SEED", str(SEED)])]
+
+    _reset_launches()
+    t0 = time.time()
+    train_main(argv(1))
+    torch.cuda.synchronize()
+    log(f"train path: epoch 0 in {time.time() - t0:.2f} s cold (build, loaders, "
+        f"6 steps, checkpoint, val loss, evaluation)")
+    ckpts = sorted(os.listdir(os.path.join(logdir, "checkpoints")))
+    log(f"train path: checkpoints after the first run: {ckpts}")
+    if ckpts != ["checkpoint_epoch_00000.pth"]:
+        raise AssertionError(f"expected one epoch-0 checkpoint, found {ckpts}")
+    t0 = time.time()
+    # --tempcfg: the run directory's frozen config.yml says 1 epoch
+    trainer = train_main(argv(2, "--continue_train", "--tempcfg"))
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    log(f"train path: resumed at epoch {trainer.start_epoch}, epoch 1 in "
+        f"{time.time() - t0:.2f} s; launches on the path {json.dumps(launches)}")
+    if trainer.start_epoch != 1:
+        raise AssertionError("the second run did not resume from epoch 0")
+    for name in ("crop_photometric", "flash_attn_fwd", "flash_attn_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the training path never launched {name}")
+
+    # the weights moved where they train and nowhere else
+    torch.manual_seed(trainer.cfg.RNG_SEED)
+    init = build_model(trainer.cfg, "cpu").state_dict()
+    trainable = {n for n, p in trainer.model.named_parameters() if p.requires_grad}
+    moved = frozen_moved = 0
+    for n, v in trainer.model.state_dict().items():
+        same = torch.equal(v.cpu(), init[n])
+        if n in trainable:
+            moved += not same
+        elif n.startswith("backbone.") or n.startswith("classifier."):
+            frozen_moved += not same
+    log(f"train path: {moved} of {len(trainable)} trainable tensors moved, "
+        f"{frozen_moved} frozen trunk / classifier tensors moved")
+    if moved != len(trainable) or frozen_moved:
+        raise AssertionError("the wrong parameters moved")
+
+    # warm steps on one loaded batch, the same step function as the loop
+    batch = next(iter(trainer.train_loader))
+    losses, n_steps = [], 5
+    dev = trainer.device_batch(batch)
+    trainer.train_step(batch, dev, 9, 0, 1e-4)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for it in range(n_steps):
+        dev = trainer.device_batch(batch)
+        losses.append(trainer.train_step(batch, dev, 9, it + 1, 1e-4))
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / n_steps * 1e3
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss {losses}")
+    clips = batch["videos"].shape[0]
+    log(f"train step (warm, USE_AMP bf16 backbone, {clips} clip x 2 views x "
+        f"{trainer.cfg.TRAIN.NUM_FRAMES} frames of 256x256 uint8 -> 224 px, "
+        f"H2D + augment + forward + backward + Adam): {step_ms:.1f} ms/step, "
+        f"{clips / step_ms * 1e3:.2f} clips/s on {card}; losses {losses}")
+    return trainer, batch, launches
+
+
+def phase_profile(trainer, batch):
+    """One warm step under torch.profiler (device busy share, time by
+    kernel), and one with CUDA events at the boundaries of its parts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m = trainer.model
+    dev = trainer.device_batch(batch)
+    trainer.train_step(batch, dev, 9, 50, 1e-4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        dev = trainer.device_batch(batch)
+        trainer.train_step(batch, dev, 9, 51, 1e-4)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    # kernels and copies on the card (the CPU ops that launched them carry
+    # the same time again)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    log(f"profile (one warm step): wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms = {busy / wall * 100:.1f}% (idle "
+        f"{100 - busy / wall * 100:.1f}%)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    prof.export_chrome_trace(os.path.join(WORK, "train_step_trace.json"))
+
+    # the parts of one step, CUDA events between them (the host enqueues
+    # ahead, so each span is device time plus any wait for the host)
+    cfg = trainer.cfg
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    m.train()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    marks[0].record()
+    dev = trainer.device_batch(batch)
+    marks[1].record()
+    videos = trainer.augment(batch, dev, 0, 9, 52)
+    marks[2].record()
+    B, V, T = videos.shape[:3]
+    frames = m._nchw(videos.reshape((B * V * T,) + videos.shape[3:]))
+    feats = m._run_frozen(frames)
+    marks[3].record()
+    with m._autocast(frames.device):
+        feats = m.res_finetune(feats)
+    marks[4].record()
+    embs = m.head_embs(feats.view((B * V, T) + feats.shape[1:]), None,
+                       cfg.TRAIN.NUM_FRAMES,
+                       video_masks=dev["video_masks"].reshape(B * V, 1, T),
+                       project=True)
+    from video_rep_learning_tpu_torch.algos import scl_sequence_loss
+
+    loss = scl_sequence_loss(
+        embs.reshape(B, V, T, -1), dev["seq_lens"], dev["chosen_steps"],
+        dev["video_masks"], temperature=cfg.SCL.SOFTMAX_TEMPERATURE,
+        label_varience=cfg.SCL.LABEL_VARIENCE,
+        positive_type=cfg.SCL.POSITIVE_TYPE,
+        negative_type=cfg.SCL.NEGATIVE_TYPE)["loss"]
+    marks[5].record()
+    trainer.optimizer.zero_grad()
+    loss.backward()
+    marks[6].record()
+    trainer.optimizer.step(1e-4)
+    marks[7].record()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    names = ["H2D", "augment", "frozen trunk", "layer4 forward",
+             "head + loss", "backward (layer4, head)", "clip + Adam"]
+    spans = [marks[i].elapsed_time(marks[i + 1]) for i in range(7)]
+    log(f"step parts (CUDA events, wall {wall:.1f} ms): " + ", ".join(
+        f"{n} {t:.2f} ms" for n, t in zip(names, spans)))
+
+
+GRAD_GROUPS = (("layer4", ("res_finetune.",)),
+               ("FC+BN", ("embed.fc_layers.",)),
+               ("encoder", ("embed.video_emb.", "embed.video_encoder.")),
+               ("embedding + projection", ("embed.embedding_layer.",
+                                           "ssl_projection.")))
+
+
+def differing_frames(shape, seed):
+    """uint8 frames (..., H, W, 3) that differ in colour and contrast: a
+    random base colour per frame plus noise of a random amplitude."""
+    rng = np.random.default_rng(seed)
+    lead = shape[:-3]
+    base = rng.uniform(30, 225, lead + (1, 1, 3))
+    amp = rng.uniform(5, 60, lead + (1, 1, 1))
+    noise = rng.standard_normal(shape, dtype=np.float32)
+    return np.clip(base + amp * noise, 0, 255).astype(np.uint8)
+
+
+def phase_step_card_vs_cpu(data_root):
+    """One fp32 training step (USE_AMP False, TF32 off) on the card and on
+    the CPU, full width with 16 frames a view: the same initial weights, the
+    same batch and the same augmentation values sampled once on the host.
+    Without USE_AMP the crop is the plain matmul and the photometric-only
+    kernel runs. Then layer4 alone in fp64 on both devices, from the CPU
+    step's layer3 features and upstream gradient."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.algos import SCL
+    from video_rep_learning_tpu_torch.data import construct_dataloader
+    from video_rep_learning_tpu_torch.models import build_model, set_trainable
+    from video_rep_learning_tpu_torch.ops.augment import (AugmentParams,
+                                                          sample_ssl_batch,
+                                                          ssl_batch_augment)
+
+    cfg = cli.load_config(cli.parse_cli(
+        ["--cfg_file", CFG_FILE, "--opts", "USE_AMP", "False", "TRAIN.NUM_FRAMES",
+         "16", "DATA.NUM_WORKERS", "0", "MODEL.EMBEDDER_MODEL.FC_DROPOUT_RATE",
+         "0.0"])[0])
+    cfg.PATH_TO_DATASET = os.path.join(data_root, "pouring")
+    loader, _ = construct_dataloader(cfg, "train")
+    batch = next(iter(loader))
+    B, V, _, H, W, _ = batch["videos"].shape
+    # the loader's masks, lengths and steps, with frames that differ in place
+    # of the synthetic set's (mostly a flat background)
+    videos = differing_frames(tuple(batch["videos"].shape), SEED)
+    aug = AugmentParams(image_size=cfg.IMAGE_SIZE)
+    sampled = sample_ssl_batch(torch.Generator().manual_seed(SEED), B, V, H, W,
+                               batch["dims"], aug)
+    sampled["fscal"][:, [0, 5]] = 1  # jitter and blur on: the whole chain runs
+    out, cap = {}, {}
+
+    def capture(mod, inp, feats):  # layer4's input and upstream gradient
+        cap["x"] = inp[0].detach()
+        feats.register_hook(lambda g: cap.__setitem__("g", g.detach()))
+
+    _reset_launches()
+    for dev in ("cuda", "cpu"):
+        torch.manual_seed(SEED)
+        model = build_model(cfg, dev)
+        named = set_trainable(model, cfg.MODEL.TRAIN_BASE)
+        model.train()
+        hook = model.res_finetune.register_forward_hook(capture)
+        tb = {"videos": torch.as_tensor(videos).to(dev)}
+        for k in ("video_masks", "seq_lens", "chosen_steps"):
+            tb[k] = torch.as_tensor(batch[k]).to(dev)
+        tb["videos"] = ssl_batch_augment(tb["videos"], sampled, aug)
+        loss = SCL(cfg).compute_loss(model, tb)["loss"]
+        loss.backward()
+        hook.remove()
+        out[dev] = (tb["videos"].float().cpu(), loss.item(),
+                    {n: p.grad.float().cpu() for n, p in named if p.grad is not None})
+    launches = _read_launches()
+    # layer4 in fp64 on both devices, from the CPU step's input and upstream
+    # gradient (the same initial weights)
+    g64 = {}
+    for dev in ("cuda", "cpu"):
+        torch.manual_seed(SEED)
+        layer4 = build_model(cfg, dev).res_finetune.double().train()
+        layer4(cap["x"].to(dev, torch.float64)).backward(cap["g"].to(dev, torch.float64))
+        g64[dev] = {"res_finetune." + n: p.grad.cpu() for n, p in layer4.named_parameters()}
+    (fa, la, ga), (fb, lb, gb) = out["cuda"], out["cpu"]
+
+    def rel(x, y):
+        """|x - y| at its largest, relative to the largest |y| (at least 1)."""
+        return (x.double() - y.double()).abs().max().item() / max(
+            1.0, y.abs().max().item())
+
+    f_err = (fa - fb).abs().max().item()
+    l_err = abs(la - lb) / abs(lb)
+    groups = {g: [n for n in gb if n.startswith(p)] for g, p in GRAD_GROUPS}
+    if sorted(sum(groups.values(), [])) != sorted(gb) or set(ga) != set(gb):
+        raise AssertionError("the gradient tensors do not match the groups")
+    log(f"card vs CPU, one fp32 training step ({B} clip x {V} views x 16 "
+        f"frames that differ, full width, TF32 off): frames err {f_err:.3e} "
+        f"(tol {STEP_TOL['frames']:.0e}), loss {la:.6f} vs {lb:.6f} (rel "
+        f"{l_err:.2e}, tol {STEP_TOL['loss']:.0e}), photometric launches "
+        f"{launches['photometric']}; gradients, each tensor relative to its "
+        f"largest value (at least 1):")
+    ok = (f_err <= STEP_TOL["frames"] and l_err <= STEP_TOL["loss"]
+          and launches["photometric"] > 0)
+    for group, names in groups.items():
+        err, worst = max((rel(ga[n], gb[n]), n) for n in names)
+        if group != "layer4":
+            ok &= err <= STEP_TOL["grads"]
+        log(f"  {group} ({len(names)} tensors), fp32: worst {worst} err "
+            f"{err:.2e} " + (f"(tol {STEP_TOL['grads']:.0e})" if group != "layer4"
+                             else "(held in fp64 below)"))
+    layer4 = groups["layer4"]
+    e64, w64 = max((rel(g64["cuda"][n], g64["cpu"][n]), n) for n in layer4)
+    ok &= e64 <= STEP_TOL["layer4_fp64"] and set(g64["cpu"]) == set(layer4)
+    own = {dev: max(rel(g[n], g64["cpu"][n]) for n in layer4)
+           for dev, g in (("card", ga), ("CPU", gb))}
+    log(f"  layer4 in fp64 on the CPU step's input and upstream gradient: "
+        f"card vs CPU worst {w64} err {e64:.2e} (tol "
+        f"{STEP_TOL['layer4_fp64']:.0e}); fp32 layer4 gradients against "
+        f"these fp64 ones: the CPU's {own['CPU']:.2e}, the card's "
+        f"{own['card']:.2e}")
+    log(f"card vs CPU training step {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's fp32 training step disagrees with the CPU's")
+    return launches
+
+
+SOURCES = {
+    "flash_attn_fwd": ("flash_attn_fwd.cu", "attention_pallas.py:79"),
+    "flash_attn_bwd": ("flash_attn_bwd.cu", "attention_pallas.py:98"),
+    "crop_photometric": ("photometric.cu", "photometric_pallas.py:218"),
+    "photometric": ("photometric.cu", "photometric_pallas.py:208"),
+}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only "
@@ -295,15 +814,31 @@ def main():
     card = phase_environment()
     phase_build()
     data_root, lens = make_synthetic_set()
-    max_err, (ms, plain_ms) = phase_kernel_vs_plain(lens)
-    launches = phase_main_path(data_root, card)
+    fwd_err = phase_kernel_vs_plain(lens)
+    entries = phase_attention_backward()
+    entries["flash_attn_fwd"]["max_abs_err"] = fwd_err
+    entries.update(phase_augment())
+    eval_launches = phase_main_path(data_root, card)
     phase_card_vs_cpu(data_root, os.path.join(WORK, "logs"))
-    log(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "video_rep_learning_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "video_rep_learning_tpu/ops/attention_pallas.py:79",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+    trainer, batch, train_launches = phase_train_path(data_root, card)
+    phase_profile(trainer, batch)
+    step_launches = phase_step_card_vs_cpu(data_root)
+    kernels = []
+    for name, (src, replaces) in SOURCES.items():
+        path, launches = (("fp32 training step", step_launches[name])
+                          if name == "photometric"
+                          else ("training (2 epochs)", train_launches[name]))
+        e = entries[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"video_rep_learning_tpu_torch/csrc/{src}",
+            "replaces": f"video_rep_learning_tpu/ops/{replaces}",
+            "launches": launches, "path": path,
+            "eval_launches": eval_launches if name == "flash_attn_fwd" else 0,
+            "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
+    log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

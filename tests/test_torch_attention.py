@@ -96,3 +96,70 @@ def test_wrapper_cpu_path_counts_no_launch():
                               torch.from_numpy(v))
     assert out.shape == (1, 8, 16, 32)
     assert port.flash_attention_fwd.launches == before
+
+
+# gradients: the JAX test's own tolerance for its Pallas backward
+# (`test_pallas.py:52-73`), fp32 sums in another order
+GRAD_ATOL = 2e-5
+
+
+def _jax_grads(q, k, v, mask, w, scale):
+    jm = None if mask is None else jnp.asarray(mask)
+    return jax.grad(
+        lambda a, b, c: jnp.sum(flash_attention(a, b, c, jm, scale)
+                                * jnp.asarray(w)),
+        argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("shape", [(2, 8, 240, 32), (2, 2, 150, 64)], ids=str)
+def test_flash_attention_grads_match_pallas(shape, mask_kind, interpret_mode):
+    """The port's autograd Function (plain forward, plain LSE backward on
+    CPU) against `jax.grad` of the Pallas kernel, with a non-uniform
+    cotangent; "masked_row" gives the last batch row no key at all."""
+    q, k, v, mask = _inputs(shape, mask_kind, seed=2)
+    w = np.random.RandomState(3).randn(*shape).astype(np.float32)
+    scale = shape[-1] ** -0.5
+    ref = _jax_grads(q, k, v, mask, w, scale)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = port.flash_attention(tq, tk, tv,
+                               None if mask is None else torch.from_numpy(mask),
+                               scale)
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, got, want in zip("qkv", (tq.grad, tk.grad, tv.grad), ref):
+        got, want = got.numpy(), np.asarray(want)
+        np.testing.assert_allclose(got[:-1], want[:-1], atol=GRAD_ATOL,
+                                   err_msg="d" + name)
+        # a fully masked row's LSE, NEG_INF + log(Sk), rounds to NEG_INF in
+        # fp32, so both packages give each of its keys p = 1, not 1/Sk: its
+        # gradients are sums of Sk unnormalised terms (up to ~3 here), held
+        # to the same 2e-5 relative to their size
+        scale_row = max(1.0, float(np.abs(want[-1]).max()))
+        np.testing.assert_allclose(got[-1], want[-1], atol=GRAD_ATOL * scale_row,
+                                   err_msg="d" + name)
+
+
+def test_backward_reference_matches_autograd_of_plain_forward():
+    """Where every row sees a key, the LSE backward is the exact gradient:
+    it equals autograd through `attention_reference`."""
+    q, k, v, mask = _inputs((2, 4, 60, 32), "padded", seed=4)
+    g = torch.randn(2, 4, 60, 32, generator=torch.Generator().manual_seed(0))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    m = torch.from_numpy(mask)
+    out, lse = port.attention_reference(tq, tk, tv, m, 0.2)
+    want = torch.autograd.grad(out, (tq, tk, tv), g)
+    got = port.attention_backward_reference(tq.detach(), tk.detach(),
+                                            tv.detach(), m, out.detach(),
+                                            lse.detach(), g, 0.2)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+
+
+def test_wrapper_cpu_backward_counts_no_launch():
+    q, k, v, _ = _inputs((1, 8, 16, 32), "none")
+    before = (port.flash_attention_fwd.launches, port.flash_attention_bwd.launches)
+    tq = torch.from_numpy(q).requires_grad_()
+    port.mha_with_flash(tq, torch.from_numpy(k), torch.from_numpy(v)).sum().backward()
+    assert tq.grad.shape == tq.shape
+    assert (port.flash_attention_fwd.launches,
+            port.flash_attention_bwd.launches) == before

@@ -1,7 +1,8 @@
 """The port runs where JAX, flax and sklearn are absent (the GPU machine has
-none of flax and sklearn): in a subprocess that blocks all three, import the
-port and run a tiny CPU evaluation, from the `.npy` loaders through the model
-to the two scipy-only tasks."""
+none of flax and sklearn) and without the JAX package: in a subprocess that
+blocks all four, import the port and run a tiny CPU evaluation, from the
+`.npy` loaders through the model to the two scipy-only tasks, then two
+training steps."""
 
 import os
 import subprocess
@@ -12,17 +13,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import sys
-    for name in ("jax", "flax", "sklearn"):
+    BLOCKED = ("jax", "flax", "sklearn", "video_rep_learning_tpu")
+    for name in BLOCKED:
         sys.modules[name] = None  # any import of them raises ImportError
 
     import numpy as np
     import torch
 
-    from video_rep_learning_tpu.config import get_cfg
+    from video_rep_learning_tpu_torch.config import get_cfg
     from video_rep_learning_tpu_torch.evaluate import build_eval_loaders
     from video_rep_learning_tpu_torch.evaluation import get_tasks
     from video_rep_learning_tpu_torch.evaluation.evaluate import evaluate_once
     from video_rep_learning_tpu_torch.models import build_model
+    from video_rep_learning_tpu_torch.train import Trainer
 
     torch.set_num_threads(1)
     cfg = get_cfg()
@@ -42,8 +45,23 @@ SCRIPT = textwrap.dedent("""
                             tasks, 0, None, "cpu")
     assert set(metrics) == {"kendalls_tau", "retrieval"}, metrics
     assert all(np.isfinite(v["pouring"]) for v in metrics.values()), metrics
+
+    cfg.TRAIN.NUM_FRAMES = 6
+    cfg.TRAIN.BATCH_SIZE = 1
+    cfg.USE_AMP = False
+    trainer = Trainer(cfg, no_eval=True, device="cpu")
+    trainer.train_loader.set_epoch(0)
+    before = [p.detach().clone() for _, p in trainer.model.named_parameters()]
+    losses = []
+    for it, batch in zip(range(2), trainer.train_loader):
+        losses.append(float(trainer.train_step(
+            batch, trainer.device_batch(batch), 0, it, 1e-3)))
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    moved = [not torch.equal(a, p) for a, (n, p) in
+             zip(before, trainer.model.named_parameters())]
+    assert any(moved)
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
-                    and m.split(".")[0] in ("jax", "flax", "sklearn"))
+                    and m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("NO_JAX_OK", metrics)
 """)
@@ -52,10 +70,10 @@ SCRIPT = textwrap.dedent("""
 def test_port_runs_without_jax_flax_sklearn(tmp_path):
     data = str(tmp_path / "pouring")
     subprocess.run(
-        [sys.executable, os.path.join(REPO, "tools", "make_synthetic_data.py"),
+        [sys.executable, "-m", "video_rep_learning_tpu_torch.data.synthetic",
          "--out", data, "--num_train", "3", "--num_val", "3",
-         "--min_len", "20", "--max_len", "30", "--size", "40",
-         "--format", "npy"], check=True, cwd=REPO, stdout=subprocess.DEVNULL)
+         "--min_len", "20", "--max_len", "30", "--size", "40"],
+        check=True, cwd=REPO, stdout=subprocess.DEVNULL)
     res = subprocess.run([sys.executable, "-c", SCRIPT, data], cwd=REPO,
                          env=dict(os.environ, OMP_NUM_THREADS="1"),
                          capture_output=True, text=True, timeout=600)

@@ -19,35 +19,23 @@ import time
 
 import torch
 
-from video_rep_learning_tpu.data.datasets import PennAction, Pouring
-from video_rep_learning_tpu.data.loader import EvalLoader
-from video_rep_learning_tpu.parser import load_config, parse_args, setup_train_dir
-from video_rep_learning_tpu.utils.summary import SummaryWriter
-
 from . import logging_utils
+from .data import construct_dataloader
 from .evaluation import get_tasks
 from .evaluation.evaluate import evaluate_once
 from .models import build_model, load_checkpoint
+from .parser import load_config, parse_args, setup_train_dir
+from .utils import SummaryWriter
 
 logger = logging_utils.get_logger(__name__)
 
 
 def build_eval_loaders(cfg, split: str):
-    """The embedding loaders of `video_rep_learning_tpu.data.construct_dataloader`
-    (one full-video sweep loader per dataset), built without asking JAX for
-    the process rank."""
-    primary = cfg.DATASETS[0]
-    workers = cfg.DATA.NUM_WORKERS
-    if primary == "finegym":
+    """The embedding loaders of `construct_dataloader` (one full-video sweep
+    loader per dataset)."""
+    if cfg.DATASETS[0] == "finegym":
         raise NotImplementedError("the FineGym harness comes in a later slice")
-    if primary == "pouring":
-        return [EvalLoader(Pouring(cfg, split, mode="eval", sample_all=True),
-                           num_workers=workers)]
-    if primary == "kinetics400":
-        cfg.DATASETS = cfg.DATASETS[1:]  # K400 pretrains, PennAction evaluates
-    return [EvalLoader(PennAction(cfg, split, name, mode="eval", sample_all=True),
-                       num_workers=workers)
-            for name in cfg.DATASETS]
+    return construct_dataloader(cfg, split)[1]
 
 
 def parse_cli(argv=None):

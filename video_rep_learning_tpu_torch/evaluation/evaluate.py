@@ -52,3 +52,21 @@ def evaluate_once(cfg, model, train_emb_loaders, val_emb_loaders,
             summary_writer.add_scalar("metrics/all_%s" % task_name,
                                       avg_metric, cur_epoch)
     return metrics
+
+
+def make_trainer_evaluate_fn(summary_writer):
+    """Adapter for `Trainer.fit(evaluate_fn=...)`: runs `evaluate_once` on
+    the trainer's model and embedding loaders (`train.py:327-334`)."""
+    from . import get_tasks
+
+    def fn(trainer, epoch):
+        if trainer.cfg.DATASETS[0] == "finegym":
+            raise NotImplementedError("the FineGym harness comes in a later slice")
+        iterator_tasks, embedding_tasks = get_tasks(trainer.cfg)
+        trainer.model.eval()
+        return evaluate_once(trainer.cfg, trainer.model, trainer.train_emb_loader,
+                             trainer.val_emb_loader, iterator_tasks,
+                             embedding_tasks, epoch, summary_writer,
+                             trainer.device)
+
+    return fn

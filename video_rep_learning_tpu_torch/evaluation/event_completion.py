@@ -11,8 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from video_rep_learning_tpu.data.splits import DATASET_TO_NUM_CLASSES
-
+from ..data.splits import DATASET_TO_NUM_CLASSES
 from ..logging_utils import get_logger
 
 logger = get_logger(__name__)

@@ -7,7 +7,11 @@ backbone with the `late` transformer head. Module names follow the reference
 `ssl_projection`, `classifier`), so its checkpoints load strictly.
 
 - The frozen trunk runs without grad, in eval-mode BN, in chunks of
-  MODEL.BASE_MODEL.FRAMES_PER_BATCH frames, each at its exact size.
+  MODEL.BASE_MODEL.FRAMES_PER_BATCH frames, each at its exact size (with
+  TRAIN_BASE train_all it runs unchunked and differentiable, its BN still on
+  running statistics, as in the JAX package).
+- In train mode the finetuned tail and the head use batch-statistic BN and
+  dropout; `set_trainable` marks the parameters the optimizer updates.
 - Under USE_AMP the backbone (trunk and finetuned tail) runs under bf16
   autocast; the head stays fp32, as in the JAX package.
 """
@@ -21,9 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from video_rep_learning_tpu.config import ConfigNode
-from video_rep_learning_tpu.data.splits import DATASET_TO_NUM_CLASSES
-
+from ..config import ConfigNode
+from ..data.splits import DATASET_TO_NUM_CLASSES
 from .embedder import Classifier, MLPHead, TransformerEmbModel
 from .resnet import ResNet50Stages, ResNet50Trunk
 
@@ -48,6 +51,7 @@ class ModelSpec:
     train_num_frames: int
     projection_hidden: int
     use_amp: bool
+    train_base: str = "frozen"
 
 
 def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
@@ -96,6 +100,7 @@ def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
         train_num_frames=cfg.TRAIN.NUM_FRAMES,
         projection_hidden=m.PROJECTION_SIZE,
         use_amp=bool(cfg.USE_AMP),
+        train_base=m.TRAIN_BASE,
     )
 
 
@@ -138,7 +143,11 @@ class CARLModel(nn.Module):
 
     def _run_frozen(self, frames):
         """The frozen trunk over (N, 3, H, W) frames in FRAMES_PER_BATCH
-        chunks, without grad and with eval-mode BN."""
+        chunks, without grad and with eval-mode BN (whole and differentiable
+        with TRAIN_BASE train_all)."""
+        if self.spec.train_base == "train_all":
+            with self._autocast(frames.device):
+                return self.backbone(frames)
         chunk = self.spec.frames_per_batch
         with torch.no_grad(), self._autocast(frames.device):
             outs = [self.backbone(frames[i:i + chunk])
@@ -190,6 +199,29 @@ class CARLModel(nn.Module):
         if classification:
             return self.classifier(emb)
         return emb
+
+
+def set_trainable(model: CARLModel, train_base: str, classifier: bool = False):
+    """Mark what the optimizer updates (`utils/optimizer.py:29-42`) and return
+    those (name, parameter) pairs in registration order: the frozen trunk
+    (`backbone.*`) trains only with TRAIN_BASE train_all, or its BN
+    parameters only with only_bn; the classifier only for the classification
+    algorithm (the JAX package creates it only then); everything else
+    trains."""
+    trainable = []
+    for name, p in model.named_parameters():
+        if name.startswith("classifier."):
+            keep = classifier
+        elif name.startswith("backbone.") and train_base != "train_all":
+            module = model.get_submodule(name.rsplit(".", 1)[0])
+            keep = (train_base == "only_bn"
+                    and isinstance(module, nn.modules.batchnorm._BatchNorm))
+        else:
+            keep = True
+        p.requires_grad_(keep)
+        if keep:
+            trainable.append((name, p))
+    return trainable
 
 
 def build_model(cfg: ConfigNode, device="cpu") -> CARLModel:

@@ -13,7 +13,7 @@ from typing import Tuple
 
 from torch import nn
 
-from .layers import BN_EPS, Encoder, FCBNStack, PositionalEncoder
+from .layers import BN_EPS, BatchNorm1d, Encoder, FCBNStack, PositionalEncoder
 
 
 class TransformerEmbModel(nn.Module):
@@ -74,7 +74,7 @@ class MLPHead(nn.Module):
         super().__init__()
         self.net = nn.Sequential(
             nn.Linear(embedding_size, projection_hidden),
-            nn.BatchNorm1d(projection_hidden, eps=BN_EPS),
+            BatchNorm1d(projection_hidden, eps=BN_EPS),
             nn.ReLU(),
             nn.Linear(projection_hidden, embedding_size))
 

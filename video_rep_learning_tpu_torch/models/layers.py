@@ -214,6 +214,36 @@ class Encoder(nn.Module):
         return x
 
 
+class _FlaxRunningStats:
+    """Train-mode BatchNorm whose running variance follows flax's update (the
+    JAX package's `TorchBatchNorm`): var_run <- (1 - m) var_run + m var_batch
+    with the biased batch variance, where torch uses the unbiased one. The
+    normalisation itself is torch's (biased batch statistics, as in flax)."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        m = self.momentum
+        # torch's update goes into copies (the op saves them for backward)
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, m, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():  # torch added m * var * n / (n - 1): rescale it
+            kept = self.running_var * (1.0 - m)
+            self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+            self.running_mean.copy_(mean)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    pass
+
+
 class FCBNStack(nn.Sequential):
     """[Dropout -> Linear -> BatchNorm1d -> ReLU] per width, so the Linear of
     group g is child 4g+1 and its BatchNorm child 4g+2 (reference layout)."""
@@ -222,6 +252,6 @@ class FCBNStack(nn.Sequential):
         layers = []
         for ch in channels:
             layers += [nn.Dropout(drop_rate), nn.Linear(in_channels, ch),
-                       nn.BatchNorm1d(ch, eps=BN_EPS), nn.ReLU()]
+                       BatchNorm1d(ch, eps=BN_EPS), nn.ReLU()]
             in_channels = ch
         super().__init__(*layers)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from .layers import BN_EPS
+from .layers import BN_EPS, BatchNorm2d
 
 # (planes, blocks, stride) of layer1..layer4
 _STAGES = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
@@ -30,16 +30,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         out = planes * self.expansion
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(planes, eps=BN_EPS)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(planes, eps=BN_EPS)
         self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(out, eps=BN_EPS)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
             nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
-            nn.BatchNorm2d(out, eps=BN_EPS)) if downsample else None
+            BatchNorm2d(out, eps=BN_EPS)) if downsample else None
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -67,7 +67,7 @@ class ResNet50Trunk(nn.Sequential):
     def __init__(self, upto: int = 3):
         super().__init__(
             nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False),
-            nn.BatchNorm2d(64, eps=BN_EPS),
+            BatchNorm2d(64, eps=BN_EPS),
             nn.ReLU(inplace=True),
             nn.MaxPool2d(3, stride=2, padding=1),
             *(ResNetStage(i) for i in range(1, upto + 1)))

@@ -48,15 +48,20 @@ def load_checkpoint(model: torch.nn.Module, logdir: str) -> int:
         raise FileNotFoundError(
             f"no checkpoint_epoch_*.pth under {os.path.join(logdir, 'checkpoints')}")
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    sd = dict(ckpt["model_state"])
+    load_model_state(model, ckpt["model_state"])
+    return int(ckpt.get("epoch", epoch))
+
+
+def load_model_state(model: torch.nn.Module, model_state) -> None:
+    """Load a reference-layout state dict strictly. One with no
+    `classifier.*` key keeps the model's classifier: the reference always
+    saves that head, the JAX package creates it only for the classification
+    algorithm (its importer's optional root), and SCL never runs it."""
+    sd = dict(model_state)
     if not any(k.startswith("classifier.") for k in sd):
-        # the reference always saves the classifier head; the JAX package
-        # creates it only for the classification algorithm (its importer's
-        # optional root), and the embedding path never runs it
         sd.update((k, v) for k, v in model.state_dict().items()
                   if k.startswith("classifier."))
     model.load_state_dict(sd, strict=True)
-    return int(ckpt.get("epoch", epoch))
 
 
 def save_checkpoint(model: torch.nn.Module, logdir: str, epoch: int = 0) -> str:

@@ -1,13 +1,17 @@
-"""Flash attention forward: the CUDA kernel, its plain PyTorch version and
-the wrapper that picks between them by the device of the tensors.
+"""Flash attention, forward and backward: the CUDA kernels, their plain
+PyTorch versions and the wrappers that pick between them by the device of
+the tensors.
 
 Counterpart of `video_rep_learning_tpu/ops/attention_pallas.py`
-(`flash_attention`, `mha_with_flash`, `_attention_reference`). The kernel is
-`csrc/flash_attn_fwd.cu`, built with nvcc at first use (`ops/cuda_build.py`).
+(`flash_attention`, `mha_with_flash`, `_attention_reference`, the fused
+backward). The kernels are `csrc/flash_attn_fwd.cu` and
+`csrc/flash_attn_bwd.cu`, built with nvcc at first use (`ops/cuda_build.py`).
+`flash_attention` is differentiable: `FlashAttention` runs the forward kernel,
+saves its output and LSE, and its backward runs the backward kernel.
 
 - A CUDA tensor launches the kernel or raises: there is no fallback.
-- A CPU tensor takes `attention_reference`, the same math in plain torch.
-- Forward only: the backward kernel comes with the training slice.
+- A CPU tensor takes the plain version (`attention_reference`,
+  `attention_backward_reference`), the same math in plain torch.
 """
 
 from __future__ import annotations
@@ -39,11 +43,30 @@ def attention_reference(q, k, v, kv_mask=None, sm_scale=1.0):
     return out.to(q.dtype), lse
 
 
+def attention_backward_reference(q, k, v, kv_mask, out, lse, grad_out,
+                                 sm_scale=1.0):
+    """(dq, dk, dv) of `attention_reference` recomputed from its LSE, as the
+    JAX package's fused backward kernel does: p = exp(s - lse), delta =
+    rowsum(dO * O), dv = p^T dO, ds = p (dO v^T - delta) sm_scale, dq = ds k,
+    dk = ds^T q. Masked keys score NEG_INF, so a fully masked row keeps its
+    p; with bf16 inputs p and ds are rounded to bf16 before their products.
+    Sums are fp32; the gradients take the inputs' type."""
+    dt = q.dtype
+    qf, kf, vf, g = q.float(), k.float(), v.float(), grad_out.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    if kv_mask is not None:
+        s = torch.where(kv_mask[:, None, None, :] != 0, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    delta = (g * out.float()).sum(-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), g)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, vf)
+    ds = (p * (dp - delta) * sm_scale).to(dt).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 def _check_cuda_inputs(q, k, v, kv_mask):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward only; its backward kernel "
-            "comes with the CARL training slice")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be fp32 or bf16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -73,11 +96,13 @@ def _check_cuda_inputs(q, k, v, kv_mask):
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = cuda_build.load("flash_attn_fwd")
-    lib.vrl_flash_attn_fwd.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    lib.vrl_flash_attn_fwd.restype = ctypes.c_int
+def _library(name):
+    lib = cuda_build.load(name)
+    fn = getattr(lib, "vrl_" + name)
+    n_ptr = 6 if name == "flash_attn_fwd" else 11
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     lib.vrl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vrl_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -86,7 +111,9 @@ def _library():
 def flash_attention_fwd(q, k, v, kv_mask=None, sm_scale=1.0):
     """(out, lse) of masked attention; see `attention_reference` for the
     math. CUDA tensors go through the kernel, CPU tensors through the plain
-    version. `flash_attention_fwd.launches` counts kernel launches."""
+    version. On CUDA it records no gradient: `flash_attention` is the
+    differentiable entry. `flash_attention_fwd.launches` counts kernel
+    launches."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_mask, sm_scale)
     if q.device.type != "cuda":
@@ -98,7 +125,7 @@ def flash_attention_fwd(q, k, v, kv_mask=None, sm_scale=1.0):
     mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
     if Sq == 0:
         return out, lse
-    lib = _library()
+    lib = _library("flash_attn_fwd")
     with torch.cuda.device(q.device):  # launch on the tensors' card
         err = lib.vrl_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -115,8 +142,73 @@ def flash_attention_fwd(q, k, v, kv_mask=None, sm_scale=1.0):
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_bwd(q, k, v, kv_mask, out, lse, grad_out, sm_scale=1.0):
+    """(dq, dk, dv) from the forward's `out` and `lse`; see
+    `attention_backward_reference` for the math. CUDA tensors go through the
+    kernel, CPU tensors through the plain version.
+    `flash_attention_bwd.launches` counts kernel launches."""
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, kv_mask, out, lse,
+                                            grad_out, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _check_cuda_inputs(q, k, v, kv_mask)
+    B, H, Sq, d = q.shape
+    for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
+                                  ("grad_out", grad_out, q.shape, q.dtype),
+                                  ("lse", lse, (B, H, Sq), torch.float32)):
+        if (t.shape != shape or t.dtype != dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {tuple(shape)} {dtype} on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
+    lib = _library("flash_attn_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.vrl_flash_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            grad_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, Sq, k.shape[2], d,
+            _DTYPE_CODES[q.dtype], float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_attn_bwd launch failed: "
+                           + lib.vrl_cuda_error_string(err).decode())
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel (saving out and
+    LSE), the backward kernel; the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, sm_scale):
+        out, lse = flash_attention_fwd(q, k, v, kv_mask, sm_scale)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, out, lse,
+                                         grad_out.contiguous(), ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, kv_mask=None, sm_scale=1.0):
-    """softmax(q k^T * sm_scale) v with an optional per-key mask (B, Sk)."""
+    """softmax(q k^T * sm_scale) v with an optional per-key mask (B, Sk);
+    differentiable in q, k and v."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, kv_mask, sm_scale)
     return flash_attention_fwd(q, k, v, kv_mask, sm_scale)[0]
 
 

@@ -1,21 +1,31 @@
-"""Eval-time video preprocessing on the device: crop, bilinear resize and
-ImageNet normalisation of a (T, H, W, C) float video in [0, 1].
+"""Video augmentation on the device: the eval preprocessing (crop, bilinear
+resize, ImageNet normalisation of a (T, H, W, C) float video in [0, 1]) and
+the SSL training recipe of two views per clip.
 
-Counterpart of the eval part of `video_rep_learning_tpu/ops/augment.py`
-(`resize_bilinear`, `crop_resize`, `uniform_crop`, `color_normalization`,
-`eval_augment`). The JAX package resamples with
-`jax.image.scale_and_translate(method="linear", antialias=False)`; this module
-rebuilds that function's weight matrices (triangle taps, renormalised where
-the edge drops a tap, zero where the sample lies outside the input) and
-applies them as two matmuls, so the crop is never materialised. The
-training-time augmentations come with the training slice.
+Counterpart of `video_rep_learning_tpu/ops/augment.py`: `resize_bilinear`,
+`crop_resize`, `uniform_crop`, `color_normalization`, `eval_augment`, and for
+training `_sample_ssl_scalars`, `sample_rrc_box`, `_rrc_matrix`,
+`make_ssl_batch_augment` / `fused_ssl_batch_augment`. The JAX package
+resamples with `jax.image.scale_and_translate(method="linear",
+antialias=False)`; this module rebuilds that function's weight matrices
+(triangle taps, renormalised where the edge drops a tap, zero where the
+sample lies outside the input) and applies them as two matmuls, so the crop
+is never materialised.
+
+Training samples every random value of a step on the host from one
+`torch.Generator` (`sample_ssl_batch`), apart from applying them
+(`ssl_batch_augment`), so a test can feed both packages the same values.
+`supervised_augment` (the non-SSL recipe) comes in a later slice.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
+
+from .photometric import crop_photometric, photometric
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -116,3 +126,188 @@ def eval_augment(video, image_size: int = 224, dims=None):
     left = torch.ceil((w - cw) / 2)
     video = crop_resize(video, top, left, ch, cw, image_size)
     return color_normalization(video)
+
+
+# ---------------------------------------------------------------------------
+# the SSL training recipe
+# ---------------------------------------------------------------------------
+
+class AugmentParams(NamedTuple):
+    """Config-derived parameters of the SSL recipe (`data_augment.py:372-413`).
+    `use_amp` (the config's USE_AMP) selects the crop fused into the
+    photometric kernel on the uint8 canvas, with bf16 output, as the JAX
+    trainer's `mxu_resample` and `bf16_output` do together; otherwise the
+    crop is a plain matmul resample, then the photometric-only kernel writes
+    fp32."""
+
+    image_size: int = 224
+    strength: float = 1.0
+    jitter_prob: float = 0.8
+    blur_prob: float = 0.4
+    gray_prob: float = 0.2
+    flip_prob: float = 0.5
+    use_amp: bool = False
+
+
+RRC_SCALE = (0.8, 1.0)
+RRC_RATIO = (3.0 / 4.0, 4.0 / 3.0)
+RRC_ATTEMPTS = 10
+
+
+def _uniform(gen, lo, hi, n=()):
+    """fp32 U[lo, hi) on the host from `gen`."""
+    u = torch.rand(n, generator=gen, dtype=torch.float32)
+    return u * (hi - lo) + lo
+
+
+def sample_rrc_uniforms(gen, scale=RRC_SCALE, ratio=RRC_RATIO):
+    """The random values of one RandomResizedCrop draw: (area fractions (10,),
+    log aspect ratios (10,), u_i, u_j)."""
+    area = _uniform(gen, scale[0], scale[1], (RRC_ATTEMPTS,))
+    log_ratio = _uniform(gen, math.log(ratio[0]), math.log(ratio[1]),
+                         (RRC_ATTEMPTS,))
+    return area, log_ratio, _uniform(gen, 0.0, 1.0), _uniform(gen, 0.0, 1.0)
+
+
+def rrc_box(uniforms, H, W, ratio=RRC_RATIO):
+    """torchvision RandomResizedCrop's box (`data_augment.py:231-262`) from
+    `sample_rrc_uniforms`' values, in the JAX package's fp32 arithmetic: the
+    first of 10 attempts that fits wins, else the central fallback. Returns
+    fp32 0-d (top, left, height, width)."""
+    area_frac, log_ratio, u_i, u_j = uniforms
+    H, W = _f32(H), _f32(W)
+    target_area = area_frac * (H * W)
+    aspect = torch.exp(log_ratio)
+    w = torch.round(torch.sqrt(target_area * aspect))
+    h = torch.round(torch.sqrt(target_area / aspect))
+    valid = (w > 0) & (w <= W) & (h > 0) & (h <= H)
+    idx = int(valid.to(torch.int32).argmax())
+    if bool(valid.any()):
+        h_v, w_v = h[idx], w[idx]
+        return (torch.floor(u_i * (H - h_v + 1)), torch.floor(u_j * (W - w_v + 1)),
+                h_v, w_v)
+    in_ratio = W / H
+    if in_ratio < min(ratio):
+        w_f, h_f = W, torch.round(W / min(ratio))
+    elif in_ratio > max(ratio):
+        w_f, h_f = torch.round(H * max(ratio)), H
+    else:
+        w_f, h_f = W, H
+    return torch.floor((H - h_f) / 2), torch.floor((W - w_f) / 2), h_f, w_f
+
+
+def sample_rrc_box(gen, H, W):
+    return rrc_box(sample_rrc_uniforms(gen), H, W)
+
+
+def _sample_ssl_scalars(gen, p: AugmentParams):
+    """Every random value of the SSL recipe for one view except the crop box:
+    (fscal (8,) fp32 = [jitter, brightness, contrast, saturation, hue, blur,
+    gray, flip], order (4,) of the jitter ops, blur sigma)."""
+    s = p.strength
+    b, h = 0.8 * s, 0.2 * s
+    fb = _uniform(gen, max(0.0, 1 - b), 1 + b)
+    fc = _uniform(gen, max(0.0, 1 - b), 1 + b)
+    fs = _uniform(gen, max(0.0, 1 - b), 1 + b)
+    fh = _uniform(gen, -h, h)
+    order = torch.randperm(4, generator=gen)
+    jit = _uniform(gen, 0.0, 1.0) < p.jitter_prob
+    sigma = _uniform(gen, 0.1, 2.0)
+    blur = _uniform(gen, 0.0, 1.0) < p.blur_prob
+    gray = _uniform(gen, 0.0, 1.0) < p.gray_prob
+    flip = _uniform(gen, 0.0, 1.0) < p.flip_prob
+    fscal = torch.stack([jit.float(), fb, fc, fs, fh, blur.float(),
+                         gray.float(), flip.float()])
+    return fscal, order, sigma
+
+
+def _rrc_matrix(n_in: int, n_out: int, length, offset):
+    """(n_out, n_in) resample matrix A with A @ x == scale_and_translate(x,
+    scale=n_out/length, translation=-offset*n_out/length) along one axis:
+    the crop of `length` from `offset`, resized to n_out."""
+    length, offset = _f32(length), _f32(offset)
+    scale = n_out / length
+    translation = -offset * n_out / length
+    inv = 1.0 / scale
+    return _weight_mat(n_in, n_out, inv, translation * inv, "cpu").t()
+
+
+def blur_band_matrix(size: int, ksize: int, sigma):
+    """(size, size) M with M[src, dst] = the gaussian weight of source `src`
+    for output `dst`, torch 'reflect' padding folded in, so a vertical blur
+    is M^T x and a horizontal one x M (`photometric_pallas.py:258-273`)."""
+    c = (ksize - 1) // 2
+    k = torch.arange(ksize, dtype=torch.float32) - c
+    w = torch.exp(-0.5 * torch.square(k / _f32(sigma)))
+    w = w / w.sum()
+    dst = torch.arange(size)
+    src = dst[None, :] + torch.arange(ksize)[:, None] - c  # (K, size)
+    src = torch.where(src < 0, -src, src)
+    src = torch.where(src >= size, 2 * (size - 1) - src, src)
+    onehots = (src[:, None, :] == torch.arange(size)[None, :, None]).float()
+    return torch.einsum("k,ksd->sd", w, onehots)
+
+
+def ssl_matrices(boxes, sigmas, H: int, W: int, S: int):
+    """The per-view matrices of the recipe from its sampled boxes (BV, 4)
+    (top, left, height, width) and blur sigmas (BV,): rh (BV, S, H), rw
+    (BV, W, S), mh and mw (BV, S, S), all fp32 on the host."""
+    rh, rw, mh, mw = [], [], [], []
+    for (top, left, h, w), sigma in zip(boxes, sigmas):
+        rh.append(_rrc_matrix(H, S, h, top))
+        rw.append(_rrc_matrix(W, S, w, left).t())
+        mh.append(blur_band_matrix(S, 9, sigma).t())
+        mw.append(blur_band_matrix(S, 5, sigma))
+    stack = lambda xs: torch.stack(xs).contiguous()  # noqa: E731
+    return {"rh": stack(rh), "rw": stack(rw), "mh": stack(mh), "mw": stack(mw)}
+
+
+def sample_ssl_batch(gen, B: int, V: int, H: int, W: int, dims,
+                     params: AugmentParams):
+    """All random values of one step's SSL augmentation, drawn on the host
+    from `gen`, view by view (its scalars, then its crop box), and the
+    matrices built from them: a dict of CPU tensors fscal (BV, 8), orders
+    (BV, 4), boxes (BV, 4), sigmas (BV,) and those of `ssl_matrices`.
+    `dims` (B, 2) is each clip's true (h, w) inside the (H, W) canvas, or
+    None for the whole canvas."""
+    fscal, orders, sigmas, boxes = [], [], [], []
+    for b in range(B):
+        h_true, w_true = (H, W) if dims is None else (float(dims[b][0]),
+                                                      float(dims[b][1]))
+        for _ in range(V):
+            f, order, sigma = _sample_ssl_scalars(gen, params)
+            boxes.append(torch.stack(sample_rrc_box(gen, h_true, w_true)))
+            fscal.append(f)
+            orders.append(order)
+            sigmas.append(sigma)
+    out = {"fscal": torch.stack(fscal), "orders": torch.stack(orders).to(torch.int32),
+           "boxes": torch.stack(boxes), "sigmas": torch.stack(sigmas)}
+    out.update(ssl_matrices(out["boxes"], out["sigmas"], H, W,
+                            params.image_size))
+    return out
+
+
+def ssl_batch_augment(videos, sampled, params: AugmentParams):
+    """Two-view SSL augmentation of videos (B, V, T, H, W, 3) uint8 on the
+    device with the values of `sample_ssl_batch` -> (B, V, T, S, S, 3)
+    normalised frames, a channels-last view of channel-planar memory (the
+    layout the backbone's convolutions read). Under `use_amp` the crop
+    runs inside the crop+photometric kernel on the uint8 canvas; otherwise
+    it is two plain matmuls, then the photometric-only kernel."""
+    B, V, T, H, W, _ = videos.shape
+    S = params.image_size
+    dev = videos.device
+    m = {k: sampled[k].to(dev, non_blocking=True)
+         for k in ("rh", "rw", "fscal", "orders", "mh", "mw")}
+    out_dtype = torch.bfloat16 if params.use_amp else torch.float32
+    planar = videos.reshape(B * V, T, H, W, 3).permute(0, 1, 4, 2, 3).contiguous()
+    if params.use_amp:
+        out = crop_photometric(planar, m["rh"], m["rw"], m["fscal"],
+                               m["orders"], m["mh"], m["mw"], out_dtype)
+    else:
+        x = planar.float() / 255.0
+        x = torch.matmul(torch.matmul(m["rh"][:, None, None], x),
+                         m["rw"][:, None, None])
+        out = photometric(x, m["fscal"], m["orders"], m["mh"], m["mw"],
+                          out_dtype)
+    return out.view(B, V, T, 3, S, S).permute(0, 1, 2, 4, 5, 3)

@@ -1,0 +1,134 @@
+"""Least times on one NVIDIA H100 SXM for the work of each TPU kernel of the
+JAX package: the larger of the bytes its function must move (each input
+read once, each output written once) over the memory rate, and its
+operations over the peak rate for their type (the card's published dense
+peaks: 3.35 TB/s, 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16
+in them; 700 W). `chip_smoke.py` uses `bound` for the kernels it times; this
+script prints the table for every row at the shapes its workload gives it:
+
+    python -m video_rep_learning_tpu_torch.ops.bounds
+"""
+
+from __future__ import annotations
+
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32 = 67e12
+PEAK_BF16_TC = 989e12
+
+
+def bound(nbytes, flops, peak_flops=PEAK_FP32):
+    """(bound_ms, "bytes" | "operations")."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_fwd(B, H, S, d, itemsize=4, keys=None):
+    """q, k, v, mask in; out, lse out; QK^T and PV over the `keys` unmasked
+    (batch row, key) pairs (default all B * S)."""
+    n = B * H * S * d
+    keys = B * S if keys is None else keys
+    return itemsize * 4 * n + 4 * (B * S + B * H * S), 4 * H * S * keys * d
+
+
+def attention_bwd(B, H, S, d, itemsize=4, keys=None):
+    """q, k, v, out, dO, lse, mask in; dq, dk, dv out; s recomputed, dp, dv,
+    dq, dk: five products over the unmasked keys, as `attention_fwd`."""
+    n = B * H * S * d
+    keys = B * S if keys is None else keys
+    return itemsize * 8 * n + 4 * (B * S + B * H * S), 10 * H * S * keys * d
+
+
+# operations per output pixel of the photometric chain: the least its
+# function needs, whatever order a kernel computes it in (fp32, outside the
+# tensor cores; an add, multiply, min, max, compare, select or divide is one,
+# a multiply-add two). The jitter ops from the plain version's formulas:
+# brightness (scale, clamp: 9), contrast (luma, its mean, blend, clamp: 18),
+# saturation (luma, blend, clamp: 18), hue (clamp, max / min, the sextant's
+# difference, the shift and the rebuild from v, p, q, t: 44). The gaussian
+# blur is separable: 9 taps down and 5 across, of 3 channels. Grayscale is
+# the luma; normalisation a multiply-add a channel.
+JITTER_OPS = 9 + 18 + 18 + 44
+BLUR_OPS = 2 * (9 + 5) * 3
+GRAY_OPS, NORM_OPS = 5, 6
+TAP2_OPS = 3  # a 2-tap weighted sum: a multiply and a multiply-add
+
+
+def crop_ops(S, rows, cols):
+    """Operations of the separable crop-resample to S x S of 3 channels,
+    whose resample rows have two taps: a pass over the source lines the crop
+    reads (its `rows` of the canvas, or its `cols`, whichever are fewer),
+    then a pass over the output."""
+    return 3 * TAP2_OPS * S * (S + min(rows, cols))
+
+
+def photometric_flops(fscal, T, S, rh=None, rw=None):
+    """The operations a batch of views needs, by each view's flags (fscal
+    (BV, 8): jitter column 0, blur 5, gray 6) and, for the crop, by the
+    source lines its resample matrices rh (BV, S, H) and rw (BV, W, S) read
+    (None: no crop)."""
+    f = fscal.float().cpu()
+    per_px = (NORM_OPS + JITTER_OPS * f[:, 0] + BLUR_OPS * f[:, 5]
+              + GRAY_OPS * f[:, 6])
+    total = float(per_px.sum()) * T * S * S
+    if rh is not None:
+        rows = (rh != 0).any(dim=1).sum(-1).tolist()
+        cols = (rw != 0).any(dim=2).sum(-1).tolist()
+        total += T * sum(crop_ops(S, r, c) for r, c in zip(rows, cols))
+    return total
+
+
+def table():
+    """(row, what, shape, bytes, flops, peak) of every TPU kernel at its
+    workload's shape."""
+    B, V, T, S, H_, W_ = 1, 2, 240, 224, 256, 256  # CARL training step
+    frames = B * V * T
+    # MV-Former's ViT-B/8 frame backbone at 224 px: 785 tokens of 768, 12
+    # heads of 64, bf16, in chunks of 40 frames (MODEL.BASE_MODEL.FRAMES_PER_BATCH)
+    n, N, D, Hh = 40, 785, 768, 12
+    tok = n * N * D
+    rows = [
+        ("#1/#2 flash fwd", "(2, 8, 240, 32) fp32",
+         *attention_fwd(2, 8, 240, 32), PEAK_FP32),
+        ("#3 flash bwd", "(2, 8, 240, 32) fp32",
+         *attention_bwd(2, 8, 240, 32), PEAK_FP32),
+        ("#4 packed MHA", "(40, 785, 2304) bf16",
+         2 * (3 * tok + tok), 4 * n * Hh * N * N * (D // Hh), PEAK_BF16_TC),
+        ("#5 ViT attention half-block", "(40, 785, 768) bf16",
+         2 * (2 * tok + 4 * D * D),
+         2 * n * N * D * 4 * D + 4 * n * Hh * N * N * (D // Hh), PEAK_BF16_TC),
+        ("#6 LN + matmul + GELU", "(40, 785, 768) -> 3072 bf16",
+         2 * (tok + 4 * D * D + 4 * tok), 2 * n * N * D * 4 * D, PEAK_BF16_TC),
+        ("#7 matmul + GELU", "(40, 785, 768) -> 3072 bf16",
+         2 * (tok + 4 * D * D + 4 * tok), 2 * n * N * D * 4 * D, PEAK_BF16_TC),
+        ("#8 LayerNorm", "(40, 785, 768) bf16", 2 * 2 * tok, 8 * tok, PEAK_FP32),
+        ("#9 LN + MLP + residual", "(40, 785, 768) bf16",
+         2 * (2 * tok + 8 * D * D), 4 * n * N * D * 4 * D, PEAK_BF16_TC),
+        # the loss and its gradient over N x N similarities of 128-d
+        # embeddings: the forward product, and two for the gradient
+        ("#10 SCL loss + grad", "(8192, 128) fp32",
+         4 * 2 * 8192 * 128, 3 * 2 * 8192 * 8192 * 128, PEAK_FP32),
+        # with every op of the chain on, and a crop that reads every line of
+        # the canvas (RandomResizedCrop takes 80-100% of its area);
+        # chip_smoke.py's bounds count the flags and boxes its views drew
+        ("#11 photometric", f"({V}, {T}, 3, {S}, {S}) fp32",
+         4 * 2 * frames * 3 * S * S,
+         (JITTER_OPS + BLUR_OPS + GRAY_OPS + NORM_OPS) * frames * S * S, PEAK_FP32),
+        ("#12 crop + photometric", f"({V}, {T}, 3, {H_}, {W_}) uint8 -> bf16",
+         frames * 3 * H_ * W_ + 2 * frames * 3 * S * S,
+         (JITTER_OPS + BLUR_OPS + GRAY_OPS + NORM_OPS) * frames * S * S
+         + frames * crop_ops(S, H_, W_), PEAK_FP32),
+    ]
+    return rows
+
+
+def main():
+    print("H100 SXM bounds (3.35 TB/s, 67 TFLOP/s fp32, 989 TFLOP/s bf16 "
+          "tensor cores; 700 W)")
+    for name, shape, nbytes, flops, peak in table():
+        ms, by = bound(nbytes, flops, peak)
+        print(f"{name:30s} {shape:34s} {nbytes / 1e6:10.2f} MB "
+              f"{flops / 1e9:10.3f} GFLOP  bound {ms:.4f} ms ({by})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,285 @@
+"""The SSL photometric tail, and the crop that comes before it: the CUDA
+kernels of `csrc/photometric.cu`, their plain PyTorch versions, and the
+wrappers that pick between them by the device of the tensors.
+
+Counterpart of `video_rep_learning_tpu/ops/photometric_pallas.py`:
+- `crop_photometric` replaces `_crop_photometric_kernel` (RandomResizedCrop as
+  rh (S, H) . x (H, W) . rw (W, S) on the uint8 canvas, then the tail);
+- `photometric` replaces `_photometric_kernel` (the tail on frames that are
+  already cropped).
+The tail is ColorJitter (brightness, contrast, saturation, hue in a per-view
+order), GaussianBlur (9 rows x 5 columns, reflect padding), grayscale,
+horizontal flip and ImageNet normalisation; every flag and factor comes in
+per view (`fscal`, `orders`), sampled in `ops/augment.py`.
+
+- A CUDA tensor launches the kernel or raises: there is no fallback.
+- A CPU tensor takes the plain version, which repeats the JAX kernel's math
+  op for op (blur as band matrices, flip last) and is tested against it.
+- The math is fp32; with `out_dtype=torch.bfloat16` only the output is
+  rounded, as the JAX package's `bf16_output`. The JAX package's `bf16_math`
+  (the elementwise chain in bf16, a trick for the TPU VPU's rate) is not
+  carried over: the port computes the chain in fp32 on every path.
+
+The kernel takes the resample and blur matrices in compact form, computed
+here from the same dense matrices the plain version multiplies by:
+`resample_taps` (a row of a linear, non-antialiased resample matrix has at
+most two adjacent non-zero weights) and `blur_taps` (a band matrix with the
+reflect padding folded in is a 9- or 5-tap stencil with reflected indices).
+`tests/test_torch_photometric.py` rebuilds the dense matrices from
+both forms.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import cuda_build
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+# fscal columns
+F_JITTER, F_FB, F_FC, F_FS, F_FH, F_BLUR, F_GRAY, F_FLIP = range(8)
+BLUR_ROWS, BLUR_COLS = 9, 5  # GaussianBlur kernel (5, 9): 9 taps vertically
+MAX_SIZE = 512  # the kernel's shared-memory tile holds rows of up to this
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _luma(x):
+    """ITU-R 601-2 luma of (..., 3, S, S) -> (..., S, S)."""
+    return 0.299 * x[..., 0, :, :] + 0.587 * x[..., 1, :, :] + 0.114 * x[..., 2, :, :]
+
+
+def _hue(x, f):
+    """torchvision adjust_hue through HSV on (T, 3, S, S), always fp32; the
+    JAX kernel's `_hue` line for line (i == 6 wraps, delta == 0 gives h 0)."""
+    r, g, b = x[:, 0].clamp(0, 1), x[:, 1].clamp(0, 1), x[:, 2].clamp(0, 1)
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    v = maxc
+    delta = maxc - minc
+    s = torch.where(maxc > 0, delta / torch.clamp(maxc, min=1e-12), 0.0)
+    safe = torch.where(delta > 0, delta, 1.0)
+    rc, gc, bc = (maxc - r) / safe, (maxc - g) / safe, (maxc - b) / safe
+    h = torch.where(maxc == r, bc - gc,
+                    torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = h / 6.0
+    h = torch.where(delta > 0, h - torch.floor(h), 0.0)
+    h = h + f
+    h = h - torch.floor(h)
+    i = torch.floor(h * 6.0)
+    frac = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - frac * s)
+    t = v * (1.0 - (1.0 - frac) * s)
+    i = i.to(torch.int32)
+    i = torch.where(i >= 6, i - 6, i)
+
+    def pick(opts):
+        out = opts[0]
+        for k in range(1, 6):
+            out = torch.where(i == k, opts[k], out)
+        return out
+
+    return torch.stack([pick([v, q, p, p, t, v]), pick([t, v, v, q, p, p]),
+                        pick([p, p, t, v, v, q])], dim=1)
+
+
+def _jitter_op(x, op: int, fs):
+    """One ColorJitter op on (T, 3, S, S); `fs` is the view's fscal row as
+    fp32 0-d tensors."""
+    if op == 0:
+        return (x * fs[F_FB]).clamp(0, 1)
+    if op == 1:
+        mean = _luma(x).mean(dim=(-2, -1))[:, None, None, None]
+        return (x * fs[F_FC] + mean * (1.0 - fs[F_FC])).clamp(0, 1)
+    if op == 2:
+        return (x * fs[F_FS] + _luma(x)[:, None] * (1.0 - fs[F_FS])).clamp(0, 1)
+    return _hue(x, fs[F_FH])
+
+
+def _tail_one(x, fs, order, mh, mw, out_dtype):
+    """The photometric tail of one view: x (T, 3, S, S) fp32 in [0, 1]."""
+    if fs[F_JITTER] > 0:
+        for op in order.tolist():
+            x = _jitter_op(x, op, fs)
+    if fs[F_BLUR] > 0:
+        x = torch.matmul(torch.matmul(mh, x), mw)
+    if fs[F_GRAY] > 0:
+        x = _luma(x)[:, None].expand(-1, 3, -1, -1)
+    if fs[F_FLIP] > 0:
+        x = torch.flip(x, dims=(-1,))
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    return ((x - mean[:, None, None]) / std[:, None, None]).to(out_dtype)
+
+
+def photometric_reference(videos, fscal, orders, mh, mw,
+                          out_dtype=torch.float32):
+    """videos (BV, T, 3, S, S) fp32 in [0, 1]; fscal (BV, 8) fp32 flags and
+    factors; orders (BV, 4) jitter op order (0 brightness, 1 contrast,
+    2 saturation, 3 hue); mh (BV, S, S) vertical and mw (BV, S, S)
+    horizontal blur band matrices (blur = mh . x . mw). Returns the
+    normalised (BV, T, 3, S, S) in `out_dtype`."""
+    fscal = fscal.float().cpu()
+    return torch.stack([
+        _tail_one(videos[i].float(), fscal[i], orders[i].cpu(), mh[i], mw[i],
+                  out_dtype) for i in range(videos.shape[0])])
+
+
+def crop_photometric_reference(videos, rh, rw, fscal, orders, mh, mw,
+                               out_dtype=torch.float32):
+    """videos (BV, T, 3, H, W) uint8 (or fp32 in [0, 1]); rh (BV, S, H) and
+    rw (BV, W, S) resample matrices (crop = rh . x . rw). The rest as
+    `photometric_reference`."""
+    out = []
+    fscal = fscal.float().cpu()
+    for i in range(videos.shape[0]):
+        x = videos[i]
+        x = x.float() * (1.0 / 255.0) if x.dtype == torch.uint8 else x.float()
+        x = torch.matmul(torch.matmul(rh[i], x), rw[i])
+        out.append(_tail_one(x, fscal[i], orders[i].cpu(), mh[i], mw[i],
+                             out_dtype))
+    return torch.stack(out)
+
+
+# ---------------------------------------------------------------------------
+# compact forms of the matrices, for the kernel
+# ---------------------------------------------------------------------------
+
+def resample_taps(m):
+    """(..., S, N) resample matrix -> (idx (..., S) int32, w (..., S, 2) fp32)
+    with m[..., s, :] == w0 at idx, w1 at idx + 1, zero elsewhere, for a
+    linear resample without antialiasing (at most two adjacent taps)."""
+    n = m.shape[-1]
+    first = (m != 0).to(torch.int32).argmax(dim=-1)
+    idx = torch.clamp(first, max=n - 2)
+    w = torch.stack([m.gather(-1, idx[..., None].long())[..., 0],
+                     m.gather(-1, idx[..., None].long() + 1)[..., 0]], dim=-1)
+    return idx.to(torch.int32).contiguous(), w.float().contiguous()
+
+
+def blur_taps(mh, mw):
+    """The stencil weights of the band matrices: (BV, 9) vertical taps read
+    from an interior row of mh, (BV, 5) horizontal taps from an interior
+    column of mw (`blur_band_matrix` puts w[k] at source d + k - c)."""
+    cy, cx = BLUR_ROWS // 2, BLUR_COLS // 2
+    return (mh[:, cy, :BLUR_ROWS].float().contiguous(),
+            mw[:, :BLUR_COLS, cx].float().contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = cuda_build.load("photometric")
+    lib.vrl_photometric.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p] * 2
+    lib.vrl_photometric.restype = ctypes.c_int
+    lib.vrl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.vrl_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(videos, fscal, orders, mh, mw, S, out_dtype):
+    dev = videos.device
+    if out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"out_dtype must be fp32 or bf16, got {out_dtype}")
+    if not 9 <= S <= MAX_SIZE:
+        raise ValueError(f"output size {S} outside the kernel's 9..{MAX_SIZE}")
+    BV = videos.shape[0]
+    if BV > 65535 or videos.shape[1] > 2 ** 31 - 1:
+        raise ValueError(f"grid too large: {tuple(videos.shape)}")
+    for name, t, shape in (("fscal", fscal, (BV, 8)), ("orders", orders, (BV, 4)),
+                           ("mh", mh, (BV, S, S)), ("mw", mw, (BV, S, S))):
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name} must be {shape} on {dev}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not videos.is_contiguous():
+        raise ValueError("videos must be contiguous")
+
+
+def _launch(videos, src_kind, taps, fscal, orders, mh, mw, S, out_dtype):
+    BV, T = videos.shape[:2]
+    H, W = videos.shape[3], videos.shape[4]
+    wy, wx = blur_taps(mh, mw)
+    fs = fscal.float().contiguous()
+    order = orders.to(torch.int32).contiguous()
+    out = torch.empty((BV, T, 3, S, S), dtype=out_dtype, device=videos.device)
+    if T == 0:
+        return out
+    hi, hw, wi, ww = taps
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _library()
+    with torch.cuda.device(videos.device):
+        err = lib.vrl_photometric(
+            videos.data_ptr(), ptr(hi), ptr(hw), ptr(wi), ptr(ww), fs.data_ptr(),
+            order.data_ptr(), wy.data_ptr(), wx.data_ptr(), src_kind, BV, T, H,
+            W, S, _DTYPE_CODES[out_dtype], out.data_ptr(),
+            torch.cuda.current_stream(videos.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("photometric kernel launch failed: "
+                           + lib.vrl_cuda_error_string(err).decode())
+    return out
+
+
+def crop_photometric(videos, rh, rw, fscal, orders, mh, mw,
+                     out_dtype=torch.float32):
+    """Crop-resample + photometric tail, see `crop_photometric_reference`.
+    CUDA tensors go through the kernel (uint8 frames only), CPU tensors
+    through the plain version. `crop_photometric.launches` counts kernel
+    launches."""
+    if videos.device.type == "cpu":
+        return crop_photometric_reference(videos, rh, rw, fscal, orders, mh,
+                                          mw, out_dtype)
+    if videos.device.type != "cuda":
+        raise ValueError(f"crop_photometric runs on cuda or cpu, not {videos.device}")
+    BV, _, C, H, W = videos.shape
+    S = rh.shape[1]
+    if videos.dtype != torch.uint8 or C != 3 or H < 2 or W < 2:
+        raise ValueError(f"the kernel takes (BV, T, 3, H >= 2, W >= 2) uint8, "
+                         f"got {tuple(videos.shape)} {videos.dtype}")
+    if (tuple(rh.shape) != (BV, S, H) or tuple(rw.shape) != (BV, W, S)
+            or rh.device != videos.device or rw.device != videos.device):
+        raise ValueError(f"rh must be {(BV, S, H)} and rw {(BV, W, S)} on "
+                         f"{videos.device}, got {tuple(rh.shape)}, {tuple(rw.shape)}")
+    _check(videos, fscal, orders, mh, mw, S, out_dtype)
+    taps = resample_taps(rh) + resample_taps(rw.transpose(1, 2))
+    out = _launch(videos, 1, taps, fscal, orders, mh, mw, S, out_dtype)
+    crop_photometric.launches += 1
+    return out
+
+
+crop_photometric.launches = 0
+
+
+def photometric(videos, fscal, orders, mh, mw, out_dtype=torch.float32):
+    """The photometric tail on cropped fp32 frames, see
+    `photometric_reference`. CUDA tensors go through the kernel, CPU tensors
+    through the plain version. `photometric.launches` counts kernel
+    launches."""
+    if videos.device.type == "cpu":
+        return photometric_reference(videos, fscal, orders, mh, mw, out_dtype)
+    if videos.device.type != "cuda":
+        raise ValueError(f"photometric runs on cuda or cpu, not {videos.device}")
+    S = videos.shape[-1]
+    if (videos.dtype != torch.float32 or videos.dim() != 5
+            or videos.shape[2] != 3 or videos.shape[3] != S):
+        raise ValueError(f"the kernel takes (BV, T, 3, S, S) fp32, got "
+                         f"{tuple(videos.shape)} {videos.dtype}")
+    _check(videos, fscal, orders, mh, mw, S, out_dtype)
+    out = _launch(videos, 0, (None,) * 4, fscal, orders, mh, mw, S, out_dtype)
+    photometric.launches += 1
+    return out
+
+
+photometric.launches = 0

@@ -1,0 +1,222 @@
+"""The training loop.
+
+Counterpart of `video_rep_learning_tpu/train/trainer.py` (`Trainer` with
+`init_state`, `train_one_epoch`, `val_one_epoch`, `fit`), for the SSL path:
+per step, the uint8 clips go to the device, are augmented there (two views,
+`ops/augment.py`: the crop+photometric kernel under USE_AMP, else the matmul
+crop and the photometric kernel), run through the model in train mode, the
+SCL loss, the backward (the encoder's attention backward is the flash
+backward kernel), global-norm clip, the optimizer and the per-epoch LR.
+Reference parity targets: `train.py:57-228`, the marker telemetry (marker 0 =
+data wait, 1 = H2D, 2 = step dispatch, 5 = logging).
+
+- Every random value of a step comes from a seed made of (RNG_SEED, stream,
+  epoch, iteration): stream 0 the train augmentation (drawn on the host),
+  1 the val augmentation, 2 dropout (through `torch.manual_seed`). A resumed
+  run draws what an uninterrupted one would.
+- Losses stay on the device and are read once per epoch; the one exception
+  is the REPORT_INTERVAL log line.
+- Under USE_AMP the backbone runs in bf16 autocast; parameters, the head and
+  the loss stay fp32 (bf16 has fp32's range, so no gradient scaling).
+Left for later slices: `supervised_augment` (non-SSL training), the other
+algorithms, mid-epoch checkpoints, the val video panels, multi-process DDP.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..algos import get_algo
+from ..config import ConfigNode
+from ..data import construct_dataloader
+from ..logging_utils import get_logger
+from ..models import build_model, set_trainable
+from ..models.weights import load_model_state
+from ..ops.augment import AugmentParams, sample_ssl_batch, ssl_batch_augment
+from .checkpoint import resume, save_checkpoint
+from .optimizer import Optimizer, learning_rate_for_epoch
+
+logger = get_logger(__name__)
+
+TRAIN_STREAM, VAL_STREAM, DROPOUT_STREAM = 0, 1, 2
+BATCH_KEYS = ("video_masks", "seq_lens", "chosen_steps")
+
+
+def step_seed(seed: int, stream: int, epoch: int, it: int) -> int:
+    """A 63-bit seed for one step of one stream, independent across steps."""
+    state = np.random.SeedSequence([seed, stream, epoch, it]).generate_state(2)
+    return int(state[0]) << 31 ^ int(state[1])
+
+
+class Trainer:
+    """Owns the model, algo, optimizer and loaders of one run."""
+
+    def __init__(self, cfg: ConfigNode, summary_writer=None, no_eval: bool = False,
+                 build_loaders: bool = True, device="cuda"):
+        if not cfg.SSL:
+            raise NotImplementedError(
+                "supervised (non-SSL) training comes in a later slice")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        torch.manual_seed(cfg.RNG_SEED)  # the initial weights
+        self.model = build_model(cfg, self.device)
+        if cfg.MODEL.PRETRAINED_CHECKPOINT:
+            self._warm_start(str(cfg.MODEL.PRETRAINED_CHECKPOINT))
+        self.algo = get_algo(cfg)
+        self.optimizer = Optimizer(
+            set_trainable(self.model, cfg.MODEL.TRAIN_BASE,
+                          classifier=cfg.TRAINING_ALGO == "classification"), cfg)
+        self.summary_writer = summary_writer
+        self.no_eval = no_eval
+        self.train_loader = self.train_emb_loader = None
+        self.val_loader = self.val_emb_loader = None
+        if build_loaders:
+            self.train_loader, self.train_emb_loader = construct_dataloader(
+                cfg, "train", no_eval=no_eval)
+            if not no_eval:
+                self.val_loader, self.val_emb_loader = construct_dataloader(cfg, "val")
+        self.aug = AugmentParams(image_size=cfg.IMAGE_SIZE,
+                                 strength=cfg.AUGMENTATION.STRENGTH,
+                                 use_amp=bool(cfg.USE_AMP))
+        self.start_epoch = 0
+        self.last_markers: Dict[int, float] = {}
+
+    def _warm_start(self, path: str):
+        """Weights-only warm start from a reference-layout `.pth`
+        (`models/__init__.py:50-59`); the optimizer starts fresh."""
+        if not path.endswith(".pth"):
+            raise NotImplementedError(
+                "MODEL.PRETRAINED_CHECKPOINT: the port reads reference-layout "
+                f".pth files, not {path}")
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        load_model_state(self.model, ckpt.get("model_state", ckpt))
+        logger.info("warm start from torch checkpoint %s", path)
+
+    def init_state(self) -> int:
+        """Auto-resume from the newest epoch checkpoint of LOGDIR; returns the
+        epoch to start at."""
+        start = resume(self.cfg.LOGDIR, self.model, self.optimizer)
+        self.start_epoch = 0 if start is None else start
+        return self.start_epoch
+
+    # -- one step ---------------------------------------------------------
+
+    def device_batch(self, batch):
+        """The numpy batch's uint8 videos and per-frame arrays on the device
+        (the clip's true dims stay on the host for the box sampling)."""
+        dev = {"videos": torch.as_tensor(np.ascontiguousarray(batch["videos"])
+                                         ).to(self.device, non_blocking=True)}
+        for k in BATCH_KEYS:
+            dev[k] = torch.as_tensor(np.asarray(batch[k])).to(self.device)
+        return dev
+
+    def augment(self, batch, dev_batch, stream: int, epoch: int, it: int):
+        """The two-view SSL augmentation of one step, its random values drawn
+        from the step's generator."""
+        B, V, _, H, W, _ = dev_batch["videos"].shape
+        gen = torch.Generator().manual_seed(
+            step_seed(self.cfg.RNG_SEED, stream, epoch, it))
+        sampled = sample_ssl_batch(gen, B, V, H, W, batch.get("dims"), self.aug)
+        return ssl_batch_augment(dev_batch["videos"], sampled, self.aug)
+
+    def train_step(self, batch, dev_batch, epoch: int, it: int, lr: float):
+        """One optimizer step; returns the loss as a device scalar with NaN
+        zeroed."""
+        self.model.train()
+        videos = self.augment(batch, dev_batch, TRAIN_STREAM, epoch, it)
+        torch.manual_seed(step_seed(self.cfg.RNG_SEED, DROPOUT_STREAM, epoch, it))
+        loss = self.algo.compute_loss(self.model, dict(dev_batch, videos=videos))["loss"]
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step(lr)
+        loss = loss.detach()
+        return torch.where(torch.isnan(loss), 0.0, loss)
+
+    # -- epochs -----------------------------------------------------------
+
+    def train_one_epoch(self, epoch: int) -> Dict[str, float]:
+        cfg = self.cfg
+        self.train_loader.set_epoch(epoch)
+        lr = learning_rate_for_epoch(cfg, epoch)
+        data_size = len(self.train_loader)
+        losses = []
+        tmt = {i: 0.0 for i in range(10)}
+        tmc = 0
+        t1 = time.time()
+        for cur_iter, batch in enumerate(self.train_loader):
+            tmc += 1
+            tmt[0] += time.time() - t1
+            t1 = time.time()
+            dev_batch = self.device_batch(batch)
+            tmt[1] += time.time() - t1
+            t1 = time.time()
+            losses.append(self.train_step(batch, dev_batch, epoch, cur_iter, lr))
+            tmt[2] += time.time() - t1
+            t1 = time.time()
+            if cur_iter % cfg.LOGGING.REPORT_INTERVAL == 0:
+                # reading the value waits for this step
+                logger.info("iter %d, training loss: %.3f",
+                            data_size * epoch + cur_iter, float(losses[-1]))
+            tmt[5] += time.time() - t1
+            t1 = time.time()
+
+        total = float(torch.stack(losses).sum().cpu()) / data_size if losses else 0.0
+        # per-iteration marker means; marker 2 is step dispatch (the device
+        # finishes the steps by the read above)
+        self.last_markers = {i: tmt[i] / max(tmc, 1) for i in range(10)
+                             if tmt[i] > 0.0}
+        for i, v in self.last_markers.items():
+            print("marker %i: %f" % (i, v))
+        print("loops: %i" % tmc)
+        if self.summary_writer is not None:
+            self.summary_writer.add_scalar("train/learning_rate", lr, epoch)
+            self.summary_writer.add_scalar("train/loss", total, epoch)
+        logger.info("epoch %d, train loss: %.3f", epoch, total)
+        return {"loss": total}
+
+    @torch.no_grad()
+    def val_one_epoch(self, epoch: int) -> Dict[str, float]:
+        """The SSL loss over the val loader with running BN statistics and
+        no dropout (`train=False` in the JAX package)."""
+        self.model.eval()
+        data_size = len(self.val_loader)
+        losses = []
+        for cur_iter, batch in enumerate(self.val_loader):
+            dev_batch = self.device_batch(batch)
+            videos = self.augment(batch, dev_batch, VAL_STREAM, 0, cur_iter)
+            loss = self.algo.compute_loss(self.model,
+                                          dict(dev_batch, videos=videos))["loss"]
+            losses.append(torch.where(torch.isnan(loss), 0.0, loss))
+        total = float(torch.stack(losses).sum().cpu()) / data_size if losses else 0.0
+        if self.summary_writer is not None:
+            self.summary_writer.add_scalar("val/loss", total, epoch)
+        logger.info("epoch %d, val loss: %.3f", epoch, total)
+        return {"loss": total}
+
+    def fit(self, evaluate_fn=None):
+        """`train.py:309-339`: epochs from `start_epoch`, a checkpoint every
+        SAVE_INTERVAL epochs and after the last, the val loss and
+        `evaluate_fn(trainer, epoch)` every VAL_INTERVAL epochs and after the
+        last."""
+        cfg = self.cfg
+        for epoch in range(self.start_epoch, cfg.TRAIN.MAX_EPOCHS):
+            logger.info("Training epoch %d/%d, %d iters each epoch",
+                        epoch, cfg.TRAIN.MAX_EPOCHS, len(self.train_loader))
+            t0 = time.time()
+            self.train_one_epoch(epoch)
+            print("train done in (m): " + str((time.time() - t0) / 60.0))
+            last = epoch == cfg.TRAIN.MAX_EPOCHS - 1
+            if (epoch + 1) % cfg.CHECKPOINT.SAVE_INTERVAL == 0 or last:
+                save_checkpoint(cfg.LOGDIR, self.model, self.optimizer, epoch, cfg)
+            if not self.no_eval and ((epoch + 1) % cfg.EVAL.VAL_INTERVAL == 0
+                                     or last):
+                self.val_one_epoch(epoch)
+                if evaluate_fn is not None:
+                    t0 = time.time()
+                    evaluate_fn(self, epoch)
+                    print("evaluate_once done in (m): "
+                          + str((time.time() - t0) / 60.0))
