@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
 kernels from the checkout, holds each against its plain PyTorch version,
-drives the CARL embedding and training paths end to end at full model width,
-and compares the card with the CPU on both.
+drives the CARL embedding and training paths and the MV-Former embedding
+path end to end at full model width, and compares the card with the CPU on
+each.
 
     python3 chip_smoke.py
 
@@ -17,6 +18,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    - crop+photometric and photometric at the CARL training shape
      (2 views x 240 frames of 256x256 uint8 -> 224), every flag, blur sigma
      0.1 and 2.0, a padded canvas, fp32 and bf16 output;
+   - the ViT kernels (LayerNorm, LN + matmul + bias + activation with each
+     activation and with the residual epilogue, packed attention, the
+     attention half-block) in fp32 and bf16 at the MV-Former chunk
+     (40 x 785 x 768) and a ragged last chunk (7 frames);
 4. eval path: `python -m video_rep_learning_tpu_torch.evaluate`'s function on
    a synthetic Pouring set with a full-width CARL model (seeded weights) and
    the kendalls_tau + retrieval tasks; checks launches, finiteness, unit
@@ -28,7 +33,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    clips/s, and profiles one warm step;
 6. card vs CPU: one 96-frame video through the eval path, and one training
    step in fp32 (the path of the photometric-only kernel), same weights and
-   same sampled augmentation on both, with layer4 checked once more in fp64.
+   same sampled augmentation on both, with layer4 checked once more in fp64;
+7. MV-Former eval path: the same evaluation function on
+   `configs_mvf/pouring_mvf.yml` (fully frozen ViT-B/8 at 224 px, bf16, 3
+   LSTP tokens, a 3-layer encoder; seeded weights saved as a checkpoint)
+   over the synthetic set; checks the ViT kernels' and the encoder's
+   launches and the embeddings; reports warm frames/s; then 16 frames of
+   one video in fp32, card vs CPU.
 
 The last two lines of stdout are a JSON object with one entry per kernel,
 then `{"ok": true, "device": {...}}`. Work files go to `build/chip_smoke/`.
@@ -49,6 +60,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 CFG_FILE = os.path.join(REPO, "configs", "scl_transformer_config.yml")
+MVF_CFG_FILE = os.path.join(REPO, "configs_mvf", "pouring_mvf.yml")
 SEED = 0
 # the CARL eval path gives the encoder (1, 8, n, 32) fp32 with n <= 1000
 CARL_TIMING_SHAPES = [(1, 8, 240, 32), (1, 8, 1000, 32)]
@@ -88,6 +100,19 @@ AUG_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 # rounding, 2^-53, times the ~1e6 by which fp32 shows these sums amplify
 # rounding: ~1e-10)
 STEP_TOL = {"frames": 1e-4, "loss": 1e-4, "grads": 2e-3, "layer4_fp64": 1e-8}
+# the ViT kernels, max |kernel - plain| on the same inputs. fp32: the same
+# fp32 math summed in another order (up to 768 products a sum, values of
+# order 1-10). bf16: both sides round the same fp32 values at the same
+# points, so an output may sit one ulp apart (2^-7 of the largest value);
+# attention rounds p unnormalised in the kernel, normalised in the plain
+# version (two ulps); the half-block composes three rounded stages, the
+# last one (proj + residual) rounding once from fp32 (two)
+VIT_FP32_TOL = {"layernorm": 1e-5, "ln_gemm": 1e-4, "packed_attn": 1e-5,
+                "vit_attention_block": 1e-4}
+VIT_BF16_ULPS = {"layernorm": 1, "ln_gemm": 1, "packed_attn": 2,
+                 "vit_attention_block": 2}
+VIT_SHAPES = [(40, 785, 768), (7, 785, 768)]  # a chunk, a ragged last chunk
+MVF_CARD_VS_CPU = 16  # frames; fp32, TF32 off, 12 blocks: tol CARD_VS_CPU_TOL
 
 
 def log(msg):
@@ -392,6 +417,131 @@ def phase_augment():
     return entries
 
 
+def phase_vit_kernels():
+    """The four ViT kernels against their plain versions in fp32 and bf16 at
+    the MV-Former chunk and a ragged last chunk; then each timed in bf16 (the
+    path's type under USE_AMP) at the chunk, beside its plain version, a
+    library composition of the same function and its bound."""
+    import torch.nn.functional as F
+
+    from video_rep_learning_tpu_torch.ops import bounds
+    from video_rep_learning_tpu_torch.ops.attention import (
+        packed_attention_reference, packed_vit_attention)
+    from video_rep_learning_tpu_torch.ops.layernorm import (fused_layernorm,
+                                                            layernorm_reference)
+    from video_rep_learning_tpu_torch.ops.matmul import (
+        ln_matmul_bias_act, ln_matmul_bias_act_reference)
+    from video_rep_learning_tpu_torch.ops.vit_block import (
+        vit_attention_block, vit_attention_block_reference)
+
+    g = torch.Generator().manual_seed(SEED + 3)
+
+    def inputs(shape, dtype):
+        n, N, D = shape
+        r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+        return dict(
+            x=(r(n, N, D) * 2 + 0.5).to("cuda", dtype),
+            qkv=r(n, N, 3 * D).to("cuda", dtype),
+            ln_s=(1 + 0.1 * r(D)).cuda(), ln_b=(0.1 * r(D)).cuda(),
+            w1=(r(4 * D, D) * D ** -0.5).to("cuda", dtype), b1=(0.1 * r(4 * D)).cuda(),
+            wqkv=(r(3 * D, D) * D ** -0.5).to("cuda", dtype),
+            bqkv=(0.1 * r(3 * D)).cuda(),
+            wp=(r(D, D) * D ** -0.5).to("cuda", dtype), bp=(0.1 * r(D)).cuda())
+
+    def cases(a, heads):
+        """name -> [(what, kernel call, plain call)]."""
+        return {
+            "layernorm": [("", lambda: fused_layernorm(a["x"], a["ln_s"], a["ln_b"]),
+                           lambda: layernorm_reference(a["x"], a["ln_s"], a["ln_b"]))],
+            "ln_gemm": [(f"LN + fc1 + {act}",
+                         lambda act=act: ln_matmul_bias_act(
+                             a["x"], a["ln_s"], a["ln_b"], a["w1"], a["b1"], act),
+                         lambda act=act: ln_matmul_bias_act_reference(
+                             a["x"], a["ln_s"], a["ln_b"], a["w1"], a["b1"], act))
+                        for act in ("none", "gelu_exact", "gelu_tanh")] + [
+                ("proj + residual, no LN",
+                 lambda: ln_matmul_bias_act(a["x"], None, None, a["wp"], a["bp"],
+                                            residual=a["x"]),
+                 lambda: ln_matmul_bias_act_reference(a["x"], None, None, a["wp"],
+                                                      a["bp"], residual=a["x"]))],
+            "packed_attn": [("", lambda: packed_vit_attention(a["qkv"], heads),
+                             lambda: packed_attention_reference(a["qkv"], heads))],
+            "vit_attention_block": [("", lambda: vit_attention_block(
+                a["x"], a["ln_s"], a["ln_b"], a["wqkv"], a["bqkv"], a["wp"],
+                a["bp"], heads), lambda: vit_attention_block_reference(
+                a["x"], a["ln_s"], a["ln_b"], a["wqkv"], a["bqkv"], a["wp"],
+                a["bp"], heads))],
+        }
+
+    max_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in VIT_SHAPES:
+            a = inputs(shape, dtype)
+            for name, runs in cases(a, shape[-1] // 64).items():
+                for what, kern, plain in runs:
+                    got = kern()
+                    torch.cuda.synchronize()
+                    want = plain()
+                    err = (got.float() - want.float()).abs().max().item()
+                    tol = (VIT_FP32_TOL[name] if dtype == torch.float32 else
+                           VIT_BF16_ULPS[name] * 2.0 ** -7
+                           * max(1.0, want.float().abs().max().item()))
+                    ok = (err <= tol and got.shape == want.shape
+                          and got.dtype == want.dtype
+                          and bool(torch.isfinite(got.float()).all()))
+                    log(f"kernel vs plain {name} {str(dtype)[6:]:8s} {shape}"
+                        f"{' ' + what if what else ''}: err {err:.3e} (tol "
+                        f"{tol:.2e}) {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{name} disagrees at {shape} {dtype}")
+                    if dtype == torch.float32 and shape == VIT_SHAPES[0]:
+                        max_err[name] = max(max_err.get(name, 0.0), err)
+            del a
+
+    # times at the chunk in bf16; the library call is a yardstick only
+    n, N, D = VIT_SHAPES[0]
+    heads, rows = D // 64, n * N
+    a = inputs(VIT_SHAPES[0], torch.bfloat16)
+    lib = {k: a[k].bfloat16() for k in ("ln_s", "ln_b", "b1", "bqkv", "bp")}
+    split = a["qkv"].view(n, N, 3, heads, 64).permute(2, 0, 3, 1, 4).contiguous()
+
+    def library_block():
+        h = F.layer_norm(a["x"], (D,), lib["ln_s"], lib["ln_b"], 1e-6)
+        qkv = F.linear(h, a["wqkv"], lib["bqkv"]).view(n, N, 3, heads, 64)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(n, N, D)
+        return a["x"] + F.linear(o, a["wp"], lib["bp"])
+
+    timing = {
+        "layernorm": (cases(a, heads)["layernorm"][0][1:],
+                      lambda: F.layer_norm(a["x"], (D,), lib["ln_s"], lib["ln_b"], 1e-6),
+                      "layer_norm", bounds.layernorm(rows, D, 2)),
+        "ln_gemm": (cases(a, heads)["ln_gemm"][1][1:],
+                    lambda: F.gelu(F.linear(F.layer_norm(
+                        a["x"], (D,), lib["ln_s"], lib["ln_b"], 1e-6), a["w1"], lib["b1"])),
+                    "layer_norm + linear + gelu, LN2 + fc1 + exact GELU",
+                    bounds.ln_matmul(rows, D, 4 * D, 2, activation="gelu_exact")),
+        "packed_attn": (cases(a, heads)["packed_attn"][0][1:],
+                        lambda: F.scaled_dot_product_attention(*split),
+                        "scaled_dot_product_attention on the split heads",
+                        bounds.packed_attention(n, N, D, heads, 2)),
+        "vit_attention_block": (cases(a, heads)["vit_attention_block"][0][1:],
+                                library_block,
+                                "layer_norm + linear + SDPA + linear + add",
+                                bounds.vit_attention_block(n, N, D, heads, 2)),
+    }
+    entries = {}
+    for name, ((kern, plain), library, lib_what, work) in timing.items():
+        ms, plain_ms, lib_ms = timed(kern, plain, library)
+        b_ms, b_by = bounds.bound(*work)
+        entries[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms, max_abs_err=max_err[name])
+        log(f"time {name} {VIT_SHAPES[0]} bf16: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
+            f"({lib_what}) {lib_ms:.4f} ms")
+    return entries
+
+
 class EmbeddingCheck:
     """An extra embedding task for this run: checks what the main path
     produced (finite, unit norm, 128-d, one embedding per frame)."""
@@ -480,21 +630,25 @@ def phase_main_path(data_root, card):
     return launches
 
 
-def phase_card_vs_cpu(data_root, logdir):
+def phase_card_vs_cpu(data_root, logdir, cfg_file=CFG_FILE, frames=96,
+                      what="CARL"):
+    """The first `frames` frames of one val video through the eval sweep in
+    fp32 (USE_AMP off, TF32 off) on the card and on the CPU, from the same
+    checkpoint."""
     from video_rep_learning_tpu_torch import evaluate as cli
     from video_rep_learning_tpu_torch.evaluation.embedding import \
         get_embeddings_dataset
     from video_rep_learning_tpu_torch.models import build_model, load_checkpoint
 
     cfg = cli.load_config(cli.parse_cli(
-        ["--cfg_file", CFG_FILE, "--logdir", logdir, "--opts", "USE_AMP",
+        ["--cfg_file", cfg_file, "--logdir", logdir, "--opts", "USE_AMP",
          "False"])[0])
     with open(os.path.join(data_root, "pouring", "val.pkl"), "rb") as f:
         entry = pickle.load(f)[0]
-    video = np.load(os.path.join(data_root, "pouring", entry["video_file"]))[:96]
-    item = {"video": video, "seq_len": 96, "name": entry["name"],
-            "labels": np.asarray(entry["frame_label"])[:96],
-            "chosen_steps": np.arange(96),
+    video = np.load(os.path.join(data_root, "pouring", entry["video_file"]))[:frames]
+    item = {"video": video, "seq_len": frames, "name": entry["name"],
+            "labels": np.asarray(entry["frame_label"])[:frames],
+            "chosen_steps": np.arange(frames),
             "dims": np.array(video.shape[1:3], np.float32)}
     embs = {}
     for dev in ("cuda", "cpu"):
@@ -502,20 +656,25 @@ def phase_card_vs_cpu(data_root, logdir):
         load_checkpoint(model, logdir)
         embs[dev] = get_embeddings_dataset(cfg, model, [item], dev)["embs"][0]
     err = float(np.abs(embs["cuda"] - embs["cpu"]).max())
-    ok = embs["cuda"].shape == (96, 128) and err <= CARD_VS_CPU_TOL
-    log(f"card vs CPU, one 96-frame video, fp32 (TF32 off): max |emb diff| "
-        f"{err:.3e} (tol {CARD_VS_CPU_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    ok = embs["cuda"].shape == (frames, 128) and err <= CARD_VS_CPU_TOL
+    log(f"card vs CPU, {what}, one {frames}-frame video, fp32 (TF32 off): max "
+        f"|emb diff| {err:.3e} (tol {CARD_VS_CPU_TOL:.0e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("card and CPU embeddings disagree")
+        raise AssertionError(f"card and CPU embeddings disagree ({what})")
 
 
 def _launch_counters():
-    from video_rep_learning_tpu_torch.ops import attention, photometric
+    from video_rep_learning_tpu_torch.ops import (attention, layernorm, matmul,
+                                                  photometric, vit_block)
 
     return {"flash_attn_fwd": attention.flash_attention_fwd,
             "flash_attn_bwd": attention.flash_attention_bwd,
             "crop_photometric": photometric.crop_photometric,
-            "photometric": photometric.photometric}
+            "photometric": photometric.photometric,
+            "layernorm": layernorm.fused_layernorm,
+            "ln_gemm": matmul.ln_matmul_bias_act,
+            "packed_attn": attention.packed_vit_attention,
+            "vit_attention_block": vit_block.vit_attention_block}
 
 
 def _reset_launches():
@@ -799,11 +958,129 @@ def phase_step_card_vs_cpu(data_root):
     return launches
 
 
-SOURCES = {
-    "flash_attn_fwd": ("flash_attn_fwd.cu", "attention_pallas.py:79"),
-    "flash_attn_bwd": ("flash_attn_bwd.cu", "attention_pallas.py:98"),
-    "crop_photometric": ("photometric.cu", "photometric_pallas.py:218"),
-    "photometric": ("photometric.cu", "photometric_pallas.py:208"),
+VIT_KERNELS = ("layernorm", "ln_gemm", "packed_attn", "vit_attention_block")
+
+
+def phase_mvf_path(data_root, card):
+    """`python -m video_rep_learning_tpu_torch.evaluate`'s function on
+    configs_mvf/pouring_mvf.yml: a fully frozen ViT-B/8 at 224 px in bf16,
+    3 static LSTP tokens, a 3-layer encoder over 3 T tokens; seeded
+    full-width weights saved as a checkpoint."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.evaluation import (TASK_REGISTRY,
+                                                         get_embeddings_dataset)
+    from video_rep_learning_tpu_torch.models import build_model, save_checkpoint
+
+    logdir = os.path.join(WORK, "mvf_logs")
+    argv = ["--workdir", data_root, "--logdir", logdir, "--cfg_file",
+            MVF_CFG_FILE, "--device", "cuda", "--opts", *smoke_opts()]
+    cfg = cli.load_config(cli.parse_cli(argv)[0])
+    torch.manual_seed(SEED)
+    save_checkpoint(build_model(cfg), logdir, 0)
+    log("MV-Former model (configs_mvf/pouring_mvf.yml: ViT-B/8 224 px fully "
+        "frozen, SMART_FEATS 11, 3 static tokens, one-hot pool, final 'one', "
+        "USE_AMP; full width, seeded weights) saved as checkpoint_epoch_00000.pth")
+
+    TASK_REGISTRY["embedding_check"] = EmbeddingCheck
+    EmbeddingCheck.seen = []
+    _reset_launches()
+    t0 = time.time()
+    metrics = cli.main(argv)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t0
+    launches = _read_launches()
+    log(f"MV-Former path: metrics {json.dumps(metrics)}, {cold_s:.2f} s cold "
+        f"(model build, checkpoint load, both splits, tasks); launches "
+        f"{json.dumps(launches)}")
+    for name in VIT_KERNELS + ("flash_attn_fwd",):
+        if launches[name] <= 0:
+            raise AssertionError(f"the MV-Former path never launched {name}")
+    # per ViT chunk of 12 blocks: 1 final norm, 12 half-blocks, each with one
+    # attention and two GEMMs, and 12 LN2 + fc1 GEMMs
+    blocks = launches["vit_attention_block"]
+    if (blocks != 12 * launches["layernorm"] or launches["packed_attn"] != blocks
+            or launches["ln_gemm"] != 3 * blocks):
+        raise AssertionError(f"launch counts do not follow the ViT's blocks: {launches}")
+    if len(EmbeddingCheck.seen) != 2:
+        raise AssertionError("the embedding check did not run")
+    for split, frames, norm_err in EmbeddingCheck.seen:
+        log(f"MV-Former path: {split} {frames} embeddings, finite, 128-d, "
+            f"max |norm - 1| {norm_err:.2e}")
+    for name, vals in metrics.items():
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"task {name} gave {vals}")
+
+    cfg.PATH_TO_DATASET = os.path.join(data_root, cfg.PATH_TO_DATASET)
+    model = build_model(cfg, "cuda")
+    cli.load_checkpoint(model, logdir)
+    loader = cli.build_eval_loaders(cfg, "val")[0]
+    get_embeddings_dataset(cfg, model, loader, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = get_embeddings_dataset(cfg, model, loader, "cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    frames = sum(out["seq_lens"])
+    log(f"MV-Former embedding sweep (val, warm, bf16 ViT-B/8, {frames} frames "
+        f"of 256x256 uint8 -> 224 px): {frames / dt:.1f} frames/s in {dt:.3f} s "
+        f"on {card}")
+    phase_mvf_profile(cfg, model, next(iter(loader)))
+    return launches, logdir
+
+
+# kernel-name fragments of the port's ViT kernels (the wrappers' CUDA
+# functions) in a profile
+OWN_KERNELS = {"gemm_bf16_kernel": "ln_gemm (#6, #5's qkv and proj)",
+               "packed_attn_kernel": "packed_attn (#4)",
+               "layernorm_kernel": "layernorm (#8)",
+               "flash_fwd_kernel": "flash_attn_fwd (encoder)"}
+
+
+def phase_mvf_profile(cfg, model, item):
+    """One warm video of the MV-Former sweep under torch.profiler: wall,
+    device busy share, and device time by kernel, the port's own kernels
+    against everything else (fc2 is the largest other product)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_rep_learning_tpu_torch.evaluation.embedding import \
+        get_embeddings_dataset
+
+    get_embeddings_dataset(cfg, model, [item], "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        get_embeddings_dataset(cfg, model, [item], "cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    log(f"MV-Former profile (one warm {item['seq_len']}-frame video): wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms = "
+        f"{busy / wall * 100:.1f}% (idle {100 - busy / wall * 100:.1f}%)")
+    own = {label: 0.0 for label in OWN_KERNELS.values()}
+    for e in events:
+        for frag, label in OWN_KERNELS.items():
+            if frag in e.key:
+                own[label] += e.self_device_time_total / 1e6
+    rest = busy - sum(own.values())
+    log("  device time by kind: " + ", ".join(
+        f"{label} {t * 1e3:.1f} ms ({t / busy * 100:.1f}%)" for label, t in own.items())
+        + f", everything else {rest * 1e3:.1f} ms ({rest / busy * 100:.1f}%)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
+    "flash_attn_fwd": ("csrc/flash_attn_fwd.cu", "attention_pallas.py:79"),
+    "flash_attn_bwd": ("csrc/flash_attn_bwd.cu", "attention_pallas.py:98"),
+    "crop_photometric": ("csrc/photometric.cu", "photometric_pallas.py:218"),
+    "photometric": ("csrc/photometric.cu", "photometric_pallas.py:208"),
+    "layernorm": ("csrc/layernorm.cu", "layernorm_pallas.py:36"),
+    "ln_gemm": ("csrc/ln_gemm.cu", "matmul_gelu_pallas.py:198"),
+    "packed_attn": ("csrc/packed_attn.cu", "attention_pallas.py:485"),
+    # three launches of csrc/ln_gemm.cu and csrc/packed_attn.cu
+    "vit_attention_block": ("ops/vit_block.py", "vit_block_pallas.py:102"),
 }
 
 
@@ -818,23 +1095,31 @@ def main():
     entries = phase_attention_backward()
     entries["flash_attn_fwd"]["max_abs_err"] = fwd_err
     entries.update(phase_augment())
+    entries.update(phase_vit_kernels())
     eval_launches = phase_main_path(data_root, card)
     phase_card_vs_cpu(data_root, os.path.join(WORK, "logs"))
     trainer, batch, train_launches = phase_train_path(data_root, card)
     phase_profile(trainer, batch)
     step_launches = phase_step_card_vs_cpu(data_root)
+    mvf_launches, mvf_logdir = phase_mvf_path(data_root, card)
+    phase_card_vs_cpu(data_root, mvf_logdir, MVF_CFG_FILE, MVF_CARD_VS_CPU,
+                      "MV-Former")
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        path, launches = (("fp32 training step", step_launches[name])
-                          if name == "photometric"
-                          else ("training (2 epochs)", train_launches[name]))
+        if name in VIT_KERNELS:
+            path, launches = "MV-Former eval", mvf_launches[name]
+        elif name == "photometric":
+            path, launches = "fp32 training step", step_launches[name]
+        else:
+            path, launches = "training (2 epochs)", train_launches[name]
         e = entries[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"video_rep_learning_tpu_torch/csrc/{src}",
+            "source": f"video_rep_learning_tpu_torch/{src}",
             "replaces": f"video_rep_learning_tpu/ops/{replaces}",
             "launches": launches, "path": path,
             "eval_launches": eval_launches if name == "flash_attn_fwd" else 0,
+            "mvf_eval_launches": mvf_launches[name],
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"]})

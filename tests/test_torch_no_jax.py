@@ -2,7 +2,8 @@
 none of flax and sklearn) and without the JAX package: in a subprocess that
 blocks all four, import the port and run a tiny CPU evaluation, from the
 `.npy` loaders through the model to the two scipy-only tasks, then two
-training steps."""
+training steps, then an MV-Former evaluation (`configs_mvf/pouring_mvf.yml`
+with a small test ViT)."""
 
 import os
 import subprocess
@@ -60,10 +61,31 @@ SCRIPT = textwrap.dedent("""
     moved = [not torch.equal(a, p) for a, (n, p) in
              zip(before, trainer.model.named_parameters())]
     assert any(moved)
+
+    from video_rep_learning_tpu_torch.config import load_yaml_into
+    from video_rep_learning_tpu_torch.models import vit
+
+    vit.VIT_SPECS["vit_test_64"] = vit.ViTSpec(64, 1, 1, 8, img_size=32)
+    mvf = get_cfg()
+    load_yaml_into(mvf, "configs_mvf/pouring_mvf.yml")
+    mvf.PATH_TO_DATASET = sys.argv[1]
+    mvf.IMAGE_SIZE = 32
+    mvf.DATA.NUM_WORKERS = 0
+    mvf.EVAL.TASKS = ["kendalls_tau", "retrieval"]
+    mvf.MODEL.BASE_MODEL.NETWORK = "TIMM-vit_test_64"
+    e = mvf.MODEL.EMBEDDER_MODEL
+    e.SMART_FEATS, e.NUM_LAYERS, e.FC_LAYERS, e.CAPACITY_SCALAR = "0", 1, [[32, True]], 1
+    e.HIDDEN_SIZE, e.D_FF, e.SMART_POOL_CHANNELS = 32, 64, 16
+    model = build_model(mvf, "cpu")
+    iterator_tasks, tasks = get_tasks(mvf)
+    mvf_metrics = evaluate_once(mvf, model, build_eval_loaders(mvf, "train"),
+                                build_eval_loaders(mvf, "val"), iterator_tasks,
+                                tasks, 0, None, "cpu")
+    assert all(np.isfinite(v["pouring"]) for v in mvf_metrics.values()), mvf_metrics
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                     and m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
-    print("NO_JAX_OK", metrics)
+    print("NO_JAX_OK", metrics, mvf_metrics)
 """)
 
 

@@ -1,5 +1,5 @@
-"""Model factory and modules of the port (the ResNet + late-transformer CARL
-family so far)."""
+"""Model factory and modules of the port: CARL (ResNet + late transformer)
+and MV-Former (fully frozen ViT or ResNet + the multi-entity head)."""
 
 from .carl import (CARLModel, ModelSpec, build_model, resolve_model_spec,  # noqa: F401
                    set_trainable)

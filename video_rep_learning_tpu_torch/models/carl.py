@@ -1,10 +1,13 @@
-"""The CARL model: ResNet-50 frame backbone -> temporal transformer head ->
+"""The CARL / MV-Former model: frame backbone -> temporal fusion head ->
 (projection | classifier), and the config resolution that wires it.
 
-Counterpart of `video_rep_learning_tpu/models/carl.py` for the ResNet
-backbone with the `late` transformer head. Module names follow the reference
-`TransformerModel` state dict (`backbone`, `res_finetune`, `embed`,
-`ssl_projection`, `classifier`), so its checkpoints load strictly.
+Counterpart of `video_rep_learning_tpu/models/carl.py` for two families: the
+ResNet backbone with the `late` transformer head (CARL), and the `smart`
+multi-entity head (MV-Former) over a fully frozen timm ViT or a ResNet.
+Module names follow the reference `TransformerModel` state dict
+(`backbone`, `backbone.model` for a ViT, `res_finetune`, `embed`,
+`ssl_projection`, `classifier`, `cls_res_res`), so its checkpoints load
+strictly.
 
 - The frozen trunk runs without grad, in eval-mode BN, in chunks of
   MODEL.BASE_MODEL.FRAMES_PER_BATCH frames, each at its exact size (with
@@ -12,8 +15,12 @@ backbone with the `late` transformer head. Module names follow the reference
   running statistics, as in the JAX package).
 - In train mode the finetuned tail and the head use batch-statistic BN and
   dropout; `set_trainable` marks the parameters the optimizer updates.
-- Under USE_AMP the backbone (trunk and finetuned tail) runs under bf16
-  autocast; the head stays fp32, as in the JAX package.
+- Under USE_AMP the ResNet (trunk and finetuned tail) runs under bf16
+  autocast and the ViT in bf16 (`models/vit.py`); the head stays fp32, as in
+  the JAX package.
+- Still to come, each with its slice: a partially frozen ViT (LAYER below
+  its depth) and a ViT under TRAIN_BASE train_all (MV-Former training),
+  late fusion over a ViT, QUANTIZE_BACKBONE (W8A8 int8 ViT matmuls).
 """
 
 from __future__ import annotations
@@ -28,7 +35,10 @@ from torch import nn
 from ..config import ConfigNode
 from ..data.splits import DATASET_TO_NUM_CLASSES
 from .embedder import Classifier, MLPHead, TransformerEmbModel
+from .mvformer import MultiEntityTransformerEmbModel
 from .resnet import ResNet50Stages, ResNet50Trunk
+from .vit import VIT_SPECS, ViTFrontEnd, ViTSpec, parse_smart_feats
+
 
 @dataclass(frozen=True)
 class ModelSpec:
@@ -52,31 +62,80 @@ class ModelSpec:
     projection_hidden: int
     use_amp: bool
     train_base: str = "frozen"
+    fusion_type: str = "late"     # late | smart
+    vit_spec: Optional[ViTSpec] = None  # None = ResNet backbone
+    tap_blocks: Tuple[int, ...] = ()
+    out_channel: int = 2048       # channels fed to the embedder
+    use_cls_res: bool = False
+    # MV-Former head
+    num_static: int = 0
+    num_dynamic: int = 0
+    pool_channels: int = 0
+    d_dyn_in: int = 0
+    one_hot_pos: str = "none"
+    smart_final: str = "max"
+    fixed_width_baseline: bool = False
+    val_pass: bool = False
+    disjoint: bool = False
+    ln_keys: bool = False
+    dyn_ctrl: str = "separate"
+
+
+def _resolve_vit(cfg, name, fusion_type):
+    """(spec, taps, out_channel) of a fully frozen timm ViT with the smart
+    head; the other ViT wirings raise, naming the slice that brings them."""
+    m = cfg.MODEL
+    if name not in VIT_SPECS:
+        raise ValueError(f"unknown TIMM model {name}")
+    vit = VIT_SPECS[name]
+    if fusion_type != "smart":
+        raise NotImplementedError(
+            "late fusion over a ViT backbone comes in a later slice")
+    if not (m.BASE_MODEL.LAYER < 0 or m.BASE_MODEL.LAYER >= vit.depth):
+        raise NotImplementedError(
+            "a partially frozen ViT (LAYER below its depth, ViTBackEnd) comes "
+            "with the MV-Former training slice")
+    if m.TRAIN_BASE == "train_all":
+        raise NotImplementedError(
+            "a ViT trained end to end (TRAIN_BASE train_all) comes with the "
+            "MV-Former training slice")
+    if m.QUANTIZE_BACKBONE:
+        raise NotImplementedError(
+            "QUANTIZE_BACKBONE (W8A8 int8 ViT matmuls) comes in a later slice")
+    taps = parse_smart_feats(m.EMBEDDER_MODEL.SMART_FEATS, vit.depth - 1)
+    if any(t < 0 or t >= vit.depth for t in taps):
+        raise ValueError(f"SMART_FEATS taps {taps} out of range for {name} "
+                         f"(depth {vit.depth})")
+    return vit, taps, vit.embed_dim * len(taps)
 
 
 def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
-    """The JAX package's `resolve_model_spec` for the branch ported so far:
-    a ResNet backbone with the late-fusion transformer head."""
+    """The JAX package's `resolve_model_spec` for the wirings ported so far:
+    a ResNet with the late-fusion head (CARL), and the smart multi-entity
+    head (MV-Former) over a fully frozen timm ViT or a ResNet."""
     m = cfg.MODEL
     e = m.EMBEDDER_MODEL
     network = m.BASE_MODEL.NETWORK
-    if network.startswith("TIMM-"):
-        raise NotImplementedError("ViT backbones come with the MV-Former slice")
+    fusion_type = e.FUSION_TYPE
     if m.EMBEDDER_TYPE != "transformer":
         raise NotImplementedError(
             f"EMBEDDER_TYPE {m.EMBEDDER_TYPE} comes with the TCC/TCN slice")
-    if e.FUSION_TYPE != "late":
-        raise NotImplementedError(
-            f"FUSION_TYPE {e.FUSION_TYPE} comes with the MV-Former slice")
+    if fusion_type not in ("late", "smart"):
+        raise ValueError(f"FUSION_TYPE {fusion_type}")
     if e.LATE_TYPE not in ("cls", "spatial"):
         raise ValueError(f"LATE_TYPE {e.LATE_TYPE}")
-    if m.CLS_RES:
+    if m.CLS_RES and fusion_type == "late":
         raise ValueError("CLS_RES cannot be used with late fusion")
-    if e.FUSION_CLS or e.CLS_GRAD_ONLY:
-        raise ValueError("FUSION_CLS / CLS_GRAD_ONLY need a timm backbone "
-                         "with smart fusion")
-    layer = m.BASE_MODEL.LAYER
-    upto, ft_start = {3: (3, 4), 2: (2, 3)}.get(layer, (4, 0))
+    if e.FUSION_CLS and (not network.startswith("TIMM-") or fusion_type != "smart"):
+        raise ValueError("FUSION_CLS requires a timm backbone with smart fusion")
+    if e.CLS_GRAD_ONLY and not e.FUSION_CLS:
+        raise ValueError("CLS_GRAD_ONLY requires FUSION_CLS")
+    vit, taps, upto, ft_start = None, (), 4, 0
+    if network.startswith("TIMM-"):
+        vit, taps, out_channel = _resolve_vit(cfg, network[5:], fusion_type)
+    else:
+        out_channel = 2048  # layer4 ends either the trunk or the tail
+        upto, ft_start = {3: (3, 4), 2: (2, 3)}.get(m.BASE_MODEL.LAYER, (4, 0))
     cap = e.CAPACITY_SCALAR
     if cfg.DATASETS[0] == "finegym":
         num_classes = cfg.EVAL.CLASS_NUM
@@ -101,6 +160,22 @@ def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
         projection_hidden=m.PROJECTION_SIZE,
         use_amp=bool(cfg.USE_AMP),
         train_base=m.TRAIN_BASE,
+        fusion_type=fusion_type,
+        vit_spec=vit,
+        tap_blocks=taps,
+        out_channel=out_channel,
+        use_cls_res=bool(m.CLS_RES),
+        num_static=e.SMART_TOKENS,
+        num_dynamic=e.SMART_DYNAMIC_TOKENS,
+        pool_channels=out_channel if e.VAL_PASS else e.SMART_POOL_CHANNELS,
+        d_dyn_in=out_channel // max(1, len(taps)),
+        one_hot_pos=e.SMART_ONE_HOT,
+        smart_final=e.SMART_FINAL,
+        fixed_width_baseline=bool(e.FIXED_WIDTH_BASELINE),
+        val_pass=bool(e.VAL_PASS),
+        disjoint=bool(e.SMART_DISJOINT),
+        ln_keys=bool(e.SMART_LN_KEYS),
+        dyn_ctrl=e.DYNAMIC_CTRL,
     )
 
 
@@ -116,19 +191,36 @@ class CARLModel(nn.Module):
     def __init__(self, spec: ModelSpec):
         super().__init__()
         self.spec = spec
-        self.backbone = ResNet50Trunk(spec.resnet_trunk_upto)
-        self.res_finetune = (ResNet50Stages(spec.resnet_finetune_start)
-                             if spec.resnet_finetune_start else None)
-        # 2048 channels for every LAYER: layer4 ends either the trunk or the tail
-        self.embed = TransformerEmbModel(
-            2048, spec.hidden_size, spec.embedding_size, spec.fc_channels,
-            spec.drop_rate, spec.flatten_method, spec.num_layers,
-            spec.num_heads, spec.d_ff, spec.train_num_frames)
-        self.ssl_projection = (MLPHead(spec.embedding_size,
-                                       spec.projection_hidden)
-                               if spec.projection else None)
-        self.classifier = Classifier(spec.embedding_size, spec.num_classes,
-                                     spec.drop_rate)
+        s = spec
+        if s.vit_spec is not None:
+            self.backbone = ViTFrontEnd(
+                s.vit_spec, s.tap_blocks,
+                torch.bfloat16 if s.use_amp else torch.float32)
+            self.res_finetune = None
+        else:
+            self.backbone = ResNet50Trunk(s.resnet_trunk_upto)
+            self.res_finetune = (ResNet50Stages(s.resnet_finetune_start)
+                                 if s.resnet_finetune_start else None)
+        if s.fusion_type == "smart":
+            self.embed = MultiEntityTransformerEmbModel(
+                s.out_channel, s.hidden_size, s.embedding_size, s.fc_channels,
+                s.drop_rate, s.num_layers, s.num_heads, s.d_ff,
+                s.train_num_frames, s.num_static, s.num_dynamic,
+                s.pool_channels, s.d_dyn_in, s.one_hot_pos, s.smart_final,
+                s.fixed_width_baseline, s.val_pass, s.disjoint, s.ln_keys,
+                s.dyn_ctrl)
+        else:
+            self.embed = TransformerEmbModel(
+                s.out_channel, s.hidden_size, s.embedding_size, s.fc_channels,
+                s.drop_rate, s.flatten_method, s.num_layers, s.num_heads,
+                s.d_ff, s.train_num_frames)
+        self.ssl_projection = (MLPHead(s.embedding_size, s.projection_hidden)
+                               if s.projection else None)
+        self.classifier = Classifier(s.embedding_size, s.num_classes,
+                                     s.drop_rate)
+        if s.use_cls_res:
+            self.cls_res_res = nn.Linear(s.vit_spec.embed_dim if s.vit_spec
+                                         else s.out_channel, s.embedding_size)
 
     def train(self, mode: bool = True):
         """The frozen trunk always keeps eval-mode BN (reference
@@ -144,7 +236,16 @@ class CARLModel(nn.Module):
     def _run_frozen(self, frames):
         """The frozen trunk over (N, 3, H, W) frames in FRAMES_PER_BATCH
         chunks, without grad and with eval-mode BN (whole and differentiable
-        with TRAIN_BASE train_all)."""
+        with TRAIN_BASE train_all). The ViT returns (taps, CLS) pairs, in its
+        own compute type."""
+        if self.spec.vit_spec is not None:
+            chunk = self.spec.frames_per_batch
+            with torch.no_grad():
+                outs = [self.backbone(frames[i:i + chunk])
+                        for i in range(0, frames.shape[0], chunk)]
+            if len(outs) == 1:
+                return outs[0]
+            return tuple(torch.cat(parts) for parts in zip(*outs))
         if self.spec.train_base == "train_all":
             with self._autocast(frames.device):
                 return self.backbone(frames)
@@ -155,12 +256,18 @@ class CARLModel(nn.Module):
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def _backbone_features(self, frames):
-        """Frozen trunk + finetuned tail: (N, 3, H, W) -> (N, C, h, w)."""
+        """(N, 3, H, W) frames -> (features, CLS or None): a ResNet's
+        (N, C, h, w) after the finetuned tail; a ViT's tapped tokens without
+        the CLS token on the (N, g, g, C) patch grid, and its CLS feature."""
         feats = self._run_frozen(frames)
+        if self.spec.vit_spec is not None:
+            taps, cls = feats
+            g = self.spec.vit_spec.grid
+            return taps[:, 1:].reshape(taps.shape[0], g, g, taps.shape[-1]), cls
         if self.res_finetune is not None:
             with self._autocast(frames.device):
                 feats = self.res_finetune(feats)
-        return feats
+        return feats, None
 
     @staticmethod
     def _nchw(frames):
@@ -173,31 +280,47 @@ class CARLModel(nn.Module):
                 project: bool = False, classification: bool = False,
                 true_seq_len=None):
         BV, T = x.shape[:2]
-        feats = self._backbone_features(self._nchw(x.flatten(0, 1)))
+        feats, cls_emb = self.backbone_flat(x.flatten(0, 1))
         feats = feats.view((BV, T) + feats.shape[1:])
-        return self.head_embs(feats, None, num_frames, video_masks=video_masks,
+        return self.head_embs(feats, cls_emb, num_frames, video_masks=video_masks,
                               project=project, classification=classification,
                               true_seq_len=true_seq_len)
 
     def backbone_flat(self, x):
         """The per-frame backbone on a flat (N, H, W, 3) or (N, 3, H, W)
-        block: returns (feats (N, C, h, w), None), the arrays `forward` feeds
-        its head. The None stands for the ViT CLS feature."""
-        return self._backbone_features(self._nchw(x)), None
+        block: returns (feats, CLS feature or None), the arrays `forward`
+        feeds its head."""
+        return self._backbone_features(self._nchw(x))
 
     def head_embs(self, feats, cls_emb=None, num_frames: Optional[int] = None,
                   video_masks=None, project: bool = False,
                   classification: bool = False, true_seq_len=None):
-        """Everything after the backbone: feats (BV, T, C, h, w) ->
+        """Everything after the backbone: feats (BV, T, ...) as
+        `backbone_flat` gives them, cls_emb (BV*T, C) for a ViT ->
         embeddings (BV, T, emb) fp32."""
-        emb = self.embed(feats, video_masks=video_masks,
-                         true_len=true_seq_len).float()
+        s = self.spec
+        if s.fusion_type == "smart":
+            if s.vit_spec is None:  # a ResNet's NCHW maps -> NHWC token grids
+                feats = feats.permute(0, 1, 3, 4, 2)
+            emb = self.embed(feats, video_masks=video_masks, cls_emb=cls_emb,
+                             true_len=true_seq_len)
+        else:
+            emb = self.embed(feats, video_masks=video_masks, true_len=true_seq_len)
+        emb = emb.float()
         if self.ssl_projection is not None and project:
             emb = _l2norm(self.ssl_projection(emb))
-        elif self.spec.l2_normalize:
+        elif s.l2_normalize:
             emb = _l2norm(emb)
         if classification:
             return self.classifier(emb)
+        if s.use_cls_res:
+            res = self.cls_res_res(cls_emb.float()).view(emb.shape[0],
+                                                         emb.shape[1], -1)
+            if s.l2_normalize:
+                res = _l2norm(res)
+            emb = emb + res
+            if s.l2_normalize:
+                emb = _l2norm(emb)
         return emb
 
 
@@ -225,10 +348,11 @@ def set_trainable(model: CARLModel, train_base: str, classifier: bool = False):
 
 
 def build_model(cfg: ConfigNode, device="cpu") -> CARLModel:
-    """The model for a config, in eval mode on `device`. The backbone keeps
+    """The model for a config, in eval mode on `device`. A ResNet keeps
     channels_last weights, the layout cuDNN's bf16 convolutions prefer."""
     model = CARLModel(resolve_model_spec(cfg))
-    model.backbone.to(memory_format=torch.channels_last)
-    if model.res_finetune is not None:
-        model.res_finetune.to(memory_format=torch.channels_last)
+    if model.spec.vit_spec is None:
+        model.backbone.to(memory_format=torch.channels_last)
+        if model.res_finetune is not None:
+            model.res_finetune.to(memory_format=torch.channels_last)
     return model.to(device).eval()

@@ -35,17 +35,24 @@ LN_EPS = 1e-6
 BN_EPS = 1e-5
 
 
-def scaled_dot_attention(q, k, v, mask=None):
+def scaled_dot_attention(q, k, v, mask=None, disjoint: bool = False,
+                         return_attn: bool = False):
     """(B, H, Sq, d) x (B, H, Sk, d) attention with a mask broadcastable to
     (B, 1, Sq|1, Sk), nonzero = keep. The path for masks that are not a plain
-    per-key mask; the `disjoint` option comes with MV-Former."""
+    per-key mask, and for LSTP's few-query pooling. `disjoint` gates the
+    attention after the softmax so each key keeps only its argmax query's
+    weight; `return_attn` also returns the (B, H, Sq, Sk) attention."""
     d_k = q.shape[-1]
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d_k)
     if mask is not None:
         scores = torch.where(mask == 0, NEG_INF, scores)
     attn = torch.softmax(scores, dim=-1)
+    if disjoint:
+        owner = F.one_hot(attn.argmax(dim=2), attn.shape[2])  # (B, H, Sk, Sq)
+        attn = attn * owner.transpose(-1, -2).to(attn.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", attn.to(v.dtype).float(), v.float())
-    return out.to(v.dtype)
+    out = out.to(v.dtype)
+    return (out, attn) if return_attn else out
 
 
 class MultiheadedAttention(nn.Module):

@@ -2,10 +2,14 @@
 
 Weights cross between the JAX package and this one in the reference
 `TransformerModel` state-dict layout. The JAX package turns its variables
-into that layout (`models/import_torch.py::convert_to_carl_state_dict`, numpy
-arrays) and writes it as `LOGDIR/checkpoints/checkpoint_epoch_%05d.pth`
-(`export_carl_checkpoint`, `tools/export_torch_checkpoint.py`); the port
-loads either with `load_state_dict(strict=True)`.
+into that layout (`models/import_torch.py::convert_to_carl_state_dict` for
+CARL, `convert_to_mvf_state_dict` for MV-Former: the timm ViT under
+`backbone.model.*`, the head under `embed.pooling.cross_att.*`,
+`embed.fc_layers.*`, `embed.video_emb`, `embed.video_encoder.*`,
+`embed.embedding_layer`, `ssl_projection.net.*`; numpy arrays) and writes it
+as `LOGDIR/checkpoints/checkpoint_epoch_%05d.pth` (`export_carl_checkpoint`,
+`export_mvf_checkpoint`, `tools/export_torch_checkpoint.py`); the port loads
+either with `load_state_dict(strict=True)`.
 """
 
 from __future__ import annotations

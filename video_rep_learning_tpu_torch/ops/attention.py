@@ -1,6 +1,6 @@
-"""Flash attention, forward and backward: the CUDA kernels, their plain
-PyTorch versions and the wrappers that pick between them by the device of
-the tensors.
+"""Flash attention, forward and backward, and the ViT's packed-qkv
+attention: the CUDA kernels, their plain PyTorch versions and the wrappers
+that pick between them by the device of the tensors.
 
 Counterpart of `video_rep_learning_tpu/ops/attention_pallas.py`
 (`flash_attention`, `mha_with_flash`, `_attention_reference`, the fused
@@ -8,6 +8,9 @@ backward). The kernels are `csrc/flash_attn_fwd.cu` and
 `csrc/flash_attn_bwd.cu`, built with nvcc at first use (`ops/cuda_build.py`).
 `flash_attention` is differentiable: `FlashAttention` runs the forward kernel,
 saves its output and LSE, and its backward runs the backward kernel.
+`packed_vit_attention` is the counterpart of that module's
+`packed_vit_attention` (`_packed_kernel`), forward only (the ViT it serves is
+frozen); its kernel is `csrc/packed_attn.cu`.
 
 - A CUDA tensor launches the kernel or raises: there is no fallback.
 - A CPU tensor takes the plain version (`attention_reference`,
@@ -215,3 +218,60 @@ def flash_attention(q, k, v, kv_mask=None, sm_scale=1.0):
 def mha_with_flash(q, k, v, kv_mask=None):
     """Scaled-dot-product attention with scale 1/sqrt(d)."""
     return flash_attention(q, k, v, kv_mask, 1.0 / math.sqrt(q.shape[-1]))
+
+
+def packed_attention_reference(qkv, num_heads):
+    """Multi-head self-attention of the packed (B, N, 3D) projection [q; k;
+    v] (timm's layout), scale 1/sqrt(dh), returned as (B, N, D) in qkv's
+    type: `attention_reference` on the split heads."""
+    B, N, three_d = qkv.shape
+    D = three_d // 3
+    dh = D // num_heads
+
+    def heads(t):
+        return t.reshape(B, N, num_heads, dh).transpose(1, 2)
+
+    q, k, v = (heads(t) for t in qkv.split(D, dim=-1))
+    out, _ = attention_reference(q, k, v, None, dh ** -0.5)
+    return out.transpose(1, 2).reshape(B, N, D)
+
+
+def packed_vit_attention(qkv, num_heads):
+    """Self-attention straight from the packed (B, N, 3D) qkv, returning
+    (B, N, D); see `packed_attention_reference` for the math. CUDA tensors go
+    through the kernel (no head transposes, no copies), CPU tensors through
+    the plain version. `packed_vit_attention.launches` counts kernel
+    launches."""
+    if qkv.device.type == "cpu":
+        return packed_attention_reference(qkv, num_heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"packed_vit_attention runs on cuda or cpu, not {qkv.device}")
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"qkv must be fp32 or bf16, got {qkv.dtype}")
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads) or not qkv.is_contiguous():
+        raise ValueError(f"qkv must be a contiguous (B, N, 3 * {num_heads} * dh) "
+                         f"tensor, got {tuple(qkv.shape)}")
+    B, N, three_d = qkv.shape
+    D = three_d // 3
+    dh = D // num_heads
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head width {dh} not supported; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if B > 65535 or num_heads > 65535:
+        raise ValueError(f"grid too large: B={B}, heads={num_heads}")
+    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    if B == 0 or N == 0:
+        return out
+    fn = cuda_build.kernel_fn("packed_attn", "vrl_packed_attn",
+                              (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 5
+                              + (ctypes.c_float, ctypes.c_void_p))
+    with torch.cuda.device(qkv.device):
+        err = fn(qkv.data_ptr(), out.data_ptr(), B, num_heads, N, dh,
+                 _DTYPE_CODES[qkv.dtype], float(dh ** -0.5),
+                 torch.cuda.current_stream(qkv.device).cuda_stream)
+    cuda_build.check_launch("packed_attn", err)
+    packed_vit_attention.launches += 1
+    return out
+
+
+packed_vit_attention.launches = 0

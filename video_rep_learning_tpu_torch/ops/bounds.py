@@ -16,10 +16,63 @@ PEAK_FP32 = 67e12
 PEAK_BF16_TC = 989e12
 
 
-def bound(nbytes, flops, peak_flops=PEAK_FP32):
-    """(bound_ms, "bytes" | "operations")."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
+def bound(nbytes, flops, peak_flops=PEAK_FP32, fp32_ops=0):
+    """(bound_ms, "bytes" | "operations"): `flops` at `peak_flops` (a
+    product's operations at the tensor-core or fp32 rate) plus `fp32_ops`
+    elementwise operations outside the tensor cores at the fp32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / peak_flops + fp32_ops / PEAK_FP32
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _peak(itemsize):
+    """The product's peak: bf16 on the tensor cores, fp32 outside them."""
+    return PEAK_BF16_TC if itemsize == 2 else PEAK_FP32
+
+
+# elementwise operations of the ViT kernels: a LayerNorm 8 a value (the
+# sum, the centred square and its sum, subtract, scale by the rstd, the
+# affine multiply-add); an epilogue's bias add 1, the activation (erf or tanh
+# counted as one) 4 for the exact GELU and 7 for the tanh form, a residual
+# add 1; the softmax 5 a score (scale, max, subtract, exp, sum)
+LN_OPS = 8
+ACT_OPS = {"none": 0, "gelu_exact": 4, "gelu_tanh": 7}
+SOFTMAX_OPS = 5
+
+
+def layernorm(rows, D, itemsize):
+    """#8: (nbytes, flops, peak, fp32_ops) of LayerNorm over (rows, D): x in,
+    y out, fp32 scale and bias; all its work is elementwise."""
+    return itemsize * 2 * rows * D + 4 * 2 * D, 0, PEAK_FP32, LN_OPS * rows * D
+
+
+def ln_matmul(rows, K, F, itemsize, ln=True, activation="none", residual=False):
+    """#6 (and #5's projection): act(LN(x) W^T + b) [+ r] for x (rows, K),
+    W (F, K): x, W, fp32 b (and LN parameters, residual) in, y out."""
+    nbytes = (itemsize * (rows * K + F * K + rows * F * (2 if residual else 1))
+              + 4 * (F + (2 * K if ln else 0)))
+    fp32_ops = ((LN_OPS * rows * K if ln else 0)
+                + rows * F * (1 + ACT_OPS[activation] + (1 if residual else 0)))
+    return nbytes, 2 * rows * K * F, _peak(itemsize), fp32_ops
+
+
+def packed_attention(n, N, D, heads, itemsize):
+    """#4: (n, N, 3D) qkv in, (n, N, D) out; q k^T and P V of every head
+    (4 N^2 D a frame) and the softmax over n heads N^2 scores."""
+    return (itemsize * 4 * n * N * D, 4 * n * N * N * D, _peak(itemsize),
+            SOFTMAX_OPS * n * heads * N * N)
+
+
+def vit_attention_block(n, N, D, heads, itemsize):
+    """#5, the TPU kernel's single pass: x and the weights in, y out; the qkv
+    and the attention output never leave the chip. Operations: the qkv and
+    projection products, attention, the LN, the softmax and the epilogues."""
+    rows = n * N
+    nbytes = itemsize * (2 * rows * D + 4 * D * D) + 4 * (2 * D + 4 * D)
+    flops = 2 * rows * D * 4 * D + 4 * n * N * N * D
+    fp32_ops = (LN_OPS * rows * D + SOFTMAX_OPS * n * heads * N * N
+                + rows * 3 * D + 2 * rows * D)
+    return nbytes, flops, _peak(itemsize), fp32_ops
 
 
 def attention_fwd(B, H, S, d, itemsize=4, keys=None):
@@ -78,8 +131,8 @@ def photometric_flops(fscal, T, S, rh=None, rw=None):
 
 
 def table():
-    """(row, what, shape, bytes, flops, peak) of every TPU kernel at its
-    workload's shape."""
+    """(row, shape, bytes, flops, peak[, fp32_ops]) of every TPU kernel at
+    its workload's shape."""
     B, V, T, S, H_, W_ = 1, 2, 240, 224, 256, 256  # CARL training step
     frames = B * V * T
     # MV-Former's ViT-B/8 frame backbone at 224 px: 785 tokens of 768, 12
@@ -92,15 +145,14 @@ def table():
         ("#3 flash bwd", "(2, 8, 240, 32) fp32",
          *attention_bwd(2, 8, 240, 32), PEAK_FP32),
         ("#4 packed MHA", "(40, 785, 2304) bf16",
-         2 * (3 * tok + tok), 4 * n * Hh * N * N * (D // Hh), PEAK_BF16_TC),
+         *packed_attention(n, N, D, Hh, 2)),
         ("#5 ViT attention half-block", "(40, 785, 768) bf16",
-         2 * (2 * tok + 4 * D * D),
-         2 * n * N * D * 4 * D + 4 * n * Hh * N * N * (D // Hh), PEAK_BF16_TC),
+         *vit_attention_block(n, N, D, Hh, 2)),
         ("#6 LN + matmul + GELU", "(40, 785, 768) -> 3072 bf16",
-         2 * (tok + 4 * D * D + 4 * tok), 2 * n * N * D * 4 * D, PEAK_BF16_TC),
+         *ln_matmul(n * N, D, 4 * D, 2, activation="gelu_exact")),
         ("#7 matmul + GELU", "(40, 785, 768) -> 3072 bf16",
-         2 * (tok + 4 * D * D + 4 * tok), 2 * n * N * D * 4 * D, PEAK_BF16_TC),
-        ("#8 LayerNorm", "(40, 785, 768) bf16", 2 * 2 * tok, 8 * tok, PEAK_FP32),
+         *ln_matmul(n * N, D, 4 * D, 2, ln=False, activation="gelu_exact")),
+        ("#8 LayerNorm", "(40, 785, 768) bf16", *layernorm(n * N, D, 2)),
         ("#9 LN + MLP + residual", "(40, 785, 768) bf16",
          2 * (2 * tok + 8 * D * D), 4 * n * N * D * 4 * D, PEAK_BF16_TC),
         # the loss and its gradient over N x N similarities of 128-d
@@ -124,8 +176,8 @@ def table():
 def main():
     print("H100 SXM bounds (3.35 TB/s, 67 TFLOP/s fp32, 989 TFLOP/s bf16 "
           "tensor cores; 700 W)")
-    for name, shape, nbytes, flops, peak in table():
-        ms, by = bound(nbytes, flops, peak)
+    for name, shape, nbytes, flops, peak, *fp32_ops in table():
+        ms, by = bound(nbytes, flops, peak, *fp32_ops)
         print(f"{name:30s} {shape:34s} {nbytes / 1e6:10.2f} MB "
               f"{flops / 1e9:10.3f} GFLOP  bound {ms:.4f} ms ({by})")
 

@@ -3,7 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface. It is compiled with
 `nvcc` for `sm_90a` into `build/kernels/<name>-<hash>.so` at the root of the
 checkout (a directory `.gitignore` lists), keyed by a hash of the source and
-the flags, and loaded with `ctypes`. Nothing here runs at import time: the CPU
+the flags, and loaded with `ctypes`. The hash covers the headers of `csrc/` a
+source includes (`#include "name.cuh"`), so an edited header rebuilds every
+library that includes it. Nothing here runs at import time: the CPU
 tests import every module of the package on hosts without `nvcc`.
 """
 
@@ -13,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,11 +40,27 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_closure(path: Path, seen=None):
+    """`path` and every `csrc/` header it includes, directly or not, in a
+    fixed order."""
+    seen = [] if seen is None else seen
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+        _source_closure(CSRC_DIR / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
     """Where the shared library for `csrc/<name>.cu` lives once built."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _source_closure(CSRC_DIR / f"{name}.cu"):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -67,3 +86,25 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu` once per process."""
     return ctypes.CDLL(str(build(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_fn(name: str, symbol: str, argtypes: tuple):
+    """`symbol` of `csrc/<name>.cu`'s library with its ctypes signature: a
+    pointer is `ctypes.c_void_p`, an int `ctypes.c_int`, a float
+    `ctypes.c_float`; it returns a cudaError_t."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error (the library's own
+    `vrl_cuda_error_string` names it)."""
+    if err != 0:
+        lib = load(name)
+        lib.vrl_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.vrl_cuda_error_string.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.vrl_cuda_error_string(err).decode())
