@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
 kernels from the checkout, holds each against its plain PyTorch version,
 drives the CARL embedding and training paths and the MV-Former embedding
-path end to end at full model width, and compares the card with the CPU on
-each.
+and training paths end to end at full model width, and compares the card
+with the CPU on each.
 
     python3 chip_smoke.py
 
@@ -39,7 +39,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    LSTP tokens, a 3-layer encoder; seeded weights saved as a checkpoint)
    over the synthetic set; checks the ViT kernels' and the encoder's
    launches and the embeddings; reports warm frames/s; then 16 frames of
-   one video in fp32, card vs CPU.
+   one video in fp32, card vs CPU;
+8. the fused SCL kernels (#10, four passes) against their plain versions at
+   N = 480, 8640 and 308 frames, single_noself and batch_noself; times,
+   bounds and peak memory beside the plain loss; the auto gate at N = 8640;
+9. MV-Former training: `python -m video_rep_learning_tpu_torch.train`'s
+   function on `configs_mvf/pouring_mvf.yml` at full width under
+   VRL_FUSED_SCL=1 (warm-started from a seeded checkpoint), one epoch, then
+   `--continue_train` for a second; checks which tensors moved (every
+   `backbone.*` bit-identical), the kernels' launches; reports warm ms per
+   step and clips/s, and profiles one warm step;
+10. one step of k400_mvf.yml's model and loss (3 taps, batch_noself, 2 x 2
+   x 80 frames) under VRL_FUSED_SCL=1 and 0: loss and head gradients agree;
+11. card vs CPU: one fp32 MV-Former training step, 8 frames a view.
 
 The last two lines of stdout are a JSON object with one entry per kernel,
 then `{"ok": true, "device": {...}}`. Work files go to `build/chip_smoke/`.
@@ -90,15 +102,17 @@ AUG_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 # one fp32 training step, card vs CPU (TF32 off on the card), over frames
 # that differ in colour and contrast: frames in normalised units (as
 # AUG_TOL); the loss relative; each gradient tensor of the head (FC+BN,
-# encoder, embedding, projection) relative to its largest value (at least
-# 1), 2e-3: the same fp32 math summed in another order. fp32 does not
+# encoder, embedding, projection; MV-Former's LSTP too) relative to its own
+# largest value, at least 1% of the step's largest head gradient (a tensor
+# whose gradient is 0 in exact arithmetic holds rounding noise only), 2e-3:
+# the same fp32 math summed in another order. fp32 does not
 # determine layer4's gradients that far at the seeded random weights: the
 # CPU's own fp32 layer4 gradients lie up to ~1e-1 of their largest value
 # from its fp64 ones on the same inputs (printed every run, with the card's).
 # So layer4 is held in fp64: its forward and backward on the CPU step's
-# layer3 features and upstream gradient, card vs CPU, to 1e-8 (fp64
-# rounding, 2^-53, times the ~1e6 by which fp32 shows these sums amplify
-# rounding: ~1e-10)
+# layer3 features and upstream gradient, card vs CPU, to 1e-8 of each
+# tensor's largest value, on the same floor (fp64 rounding, 2^-53, times the
+# ~1e6 by which fp32 shows these sums amplify rounding: ~1e-10)
 STEP_TOL = {"frames": 1e-4, "loss": 1e-4, "grads": 2e-3, "layer4_fp64": 1e-8}
 # the ViT kernels, max |kernel - plain| on the same inputs. fp32: the same
 # fp32 math summed in another order (up to 768 products a sum, values of
@@ -113,6 +127,31 @@ VIT_BF16_ULPS = {"layernorm": 1, "ln_gemm": 1, "packed_attn": 2,
                  "vit_attention_block": 2}
 VIT_SHAPES = [(40, 785, 768), (7, 785, 768)]  # a chunk, a ragged last chunk
 MVF_CARD_VS_CPU = 16  # frames; fp32, TF32 off, 12 blocks: tol CARD_VS_CPU_TOL
+K400_MVF_CFG_FILE = os.path.join(REPO, "configs_mvf", "k400_mvf.yml")
+# the fused SCL kernels against their plain versions, fp32 on both sides
+# (TF32 off): the same per-pair math summed in another order over up to
+# 8640 x 8640 pairs. Each pass's per-row output (negsum and possum each a
+# column of its own), max |kernel - plain| relative to its largest value:
+# 1e-5 (row sums of exp(l) <= e^10 a pair in fp32, ~1e-6 of rounding). The loss through `scl_loss_fused` against
+# `scl_sequence_loss`, relative: 1e-5. The gradient relative to its largest
+# value: 1e-4, as the JAX package holds its fused backward against XLA
+SCL_TOL = {"rows": 1e-5, "loss": 1e-5, "grad": 1e-4}
+# (B, T) of two views: the pouring_mvf step, the auto gate's K400-scale
+# batch (18 x 2 x 240), and a size no multiple of the 64-row tile
+SCL_SHAPES = [(1, 240), (18, 240), (2, 77)]
+SCL_NEGATIVES = ("single_noself", "batch_noself")
+# fused vs plain SCL inside one MV-Former step, same weights, batch and
+# dropout: the loss relative 1e-5 (the SCL kernels' own tolerance); each
+# head gradient tensor relative to its largest value, on STEP_TOL's floor,
+# 1e-4: the fused gradient's tolerance, carried linearly through the head's
+# backward
+FUSED_STEP_TOL = {"loss": 1e-5, "grads": 1e-4}
+MVF_STEP_FRAMES = 8  # a view, for the card vs CPU fp32 MV-Former step
+MVF_GRAD_GROUPS = (("LSTP", ("embed.pooling.",)),
+                   ("FC+BN", ("embed.fc_layers.",)),
+                   ("encoder", ("embed.video_emb.", "embed.video_encoder.")),
+                   ("embedding + projection", ("embed.embedding_layer.",
+                                               "ssl_projection.")))
 
 
 def log(msg):
@@ -665,7 +704,7 @@ def phase_card_vs_cpu(data_root, logdir, cfg_file=CFG_FILE, frames=96,
 
 def _launch_counters():
     from video_rep_learning_tpu_torch.ops import (attention, layernorm, matmul,
-                                                  photometric, vit_block)
+                                                  photometric, scl, vit_block)
 
     return {"flash_attn_fwd": attention.flash_attention_fwd,
             "flash_attn_bwd": attention.flash_attention_bwd,
@@ -674,7 +713,9 @@ def _launch_counters():
             "layernorm": layernorm.fused_layernorm,
             "ln_gemm": matmul.ln_matmul_bias_act,
             "packed_attn": attention.packed_vit_attention,
-            "vit_attention_block": vit_block.vit_attention_block}
+            "vit_attention_block": vit_block.vit_attention_block,
+            "scl_rowsum": scl.scl_rowsum, "scl_loss_rows": scl.scl_loss_rows,
+            "scl_srow": scl.scl_srow, "scl_grad": scl.scl_grad}
 
 
 def _reset_launches():
@@ -684,6 +725,23 @@ def _reset_launches():
 
 def _read_launches():
     return {name: fn.launches for name, fn in _launch_counters().items()}
+
+
+def warm_steps(trainer, n_steps):
+    """(batch, ms per step, losses) of `n_steps` warm steps on one loaded
+    batch, after one untimed, through the loop's own step function."""
+    batch = next(iter(trainer.train_loader))
+    trainer.train_step(batch, trainer.device_batch(batch), 9, 0, 1e-4)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    losses = [trainer.train_step(batch, trainer.device_batch(batch), 9, it + 1, 1e-4)
+              for it in range(n_steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / n_steps * 1e3
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss {losses}")
+    return batch, step_ms, losses
 
 
 def phase_train_path(data_root, card):
@@ -740,21 +798,7 @@ def phase_train_path(data_root, card):
     if moved != len(trainable) or frozen_moved:
         raise AssertionError("the wrong parameters moved")
 
-    # warm steps on one loaded batch, the same step function as the loop
-    batch = next(iter(trainer.train_loader))
-    losses, n_steps = [], 5
-    dev = trainer.device_batch(batch)
-    trainer.train_step(batch, dev, 9, 0, 1e-4)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for it in range(n_steps):
-        dev = trainer.device_batch(batch)
-        losses.append(trainer.train_step(batch, dev, 9, it + 1, 1e-4))
-    torch.cuda.synchronize()
-    step_ms = (time.time() - t0) / n_steps * 1e3
-    losses = [float(v) for v in losses]
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite training loss {losses}")
+    batch, step_ms, losses = warm_steps(trainer, 5)
     clips = batch["videos"].shape[0]
     log(f"train step (warm, USE_AMP bf16 backbone, {clips} clip x 2 views x "
         f"{trainer.cfg.TRAIN.NUM_FRAMES} frames of 256x256 uint8 -> 224 px, "
@@ -763,12 +807,12 @@ def phase_train_path(data_root, card):
     return trainer, batch, launches
 
 
-def phase_profile(trainer, batch):
-    """One warm step under torch.profiler (device busy share, time by
-    kernel), and one with CUDA events at the boundaries of its parts."""
+def profile_train_step(trainer, batch, what, trace, own=None):
+    """One warm step under torch.profiler: wall, device busy share, time by
+    kernel (and by the `own` kernel-name fragments); the trace goes to
+    WORK/`trace`."""
     from torch.profiler import ProfilerActivity, profile
 
-    m = trainer.model
     dev = trainer.device_batch(batch)
     trainer.train_step(batch, dev, 9, 50, 1e-4)
     torch.cuda.synchronize()
@@ -783,12 +827,29 @@ def phase_profile(trainer, batch):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    log(f"profile (one warm step): wall {wall * 1e3:.1f} ms, device busy "
+    log(f"profile ({what}, one warm step): wall {wall * 1e3:.1f} ms, device busy "
         f"{busy * 1e3:.1f} ms = {busy / wall * 100:.1f}% (idle "
         f"{100 - busy / wall * 100:.1f}%)")
+    if own:
+        by = {label: 0.0 for label in own.values()}
+        for e in events:
+            for frag, label in own.items():
+                if frag in e.key:
+                    by[label] += e.self_device_time_total / 1e6
+        rest, share = busy - sum(by.values()), 100 / max(busy, 1e-12)
+        log("  device time by kind: " + ", ".join(
+            f"{label} {t * 1e3:.1f} ms ({t * share:.1f}%)" for label, t in by.items())
+            + f", everything else {rest * 1e3:.1f} ms ({rest * share:.1f}%)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    prof.export_chrome_trace(os.path.join(WORK, "train_step_trace.json"))
+    prof.export_chrome_trace(os.path.join(WORK, trace))
+
+
+def phase_profile(trainer, batch):
+    """One warm step under torch.profiler (device busy share, time by
+    kernel), and one with CUDA events at the boundaries of its parts."""
+    m = trainer.model
+    profile_train_step(trainer, batch, "CARL", "train_step_trace.json")
 
     # the parts of one step, CUDA events between them (the host enqueues
     # ahead, so each span is device time plus any wait for the host)
@@ -854,13 +915,15 @@ def differing_frames(shape, seed):
     return np.clip(base + amp * noise, 0, 255).astype(np.uint8)
 
 
-def phase_step_card_vs_cpu(data_root):
-    """One fp32 training step (USE_AMP False, TF32 off) on the card and on
-    the CPU, full width with 16 frames a view: the same initial weights, the
-    same batch and the same augmentation values sampled once on the host.
-    Without USE_AMP the crop is the plain matmul and the photometric-only
-    kernel runs. Then layer4 alone in fp64 on both devices, from the CPU
-    step's layer3 features and upstream gradient."""
+def fp32_step_card_and_cpu(cfg_file, data_root, frames, seed, hook=None):
+    """One fp32 training step (USE_AMP False, TF32 off, dropout off) of
+    `cfg_file`'s model at full width on the card and on the CPU, `frames` a
+    view: the same initial weights, the loader's masks, lengths and steps
+    with frames that differ in colour and contrast in place of the synthetic
+    set's (mostly a flat background), and the same augmentation values
+    sampled once on the host with jitter and blur on (the whole chain runs).
+    `hook(model)` may register hooks and returns a remover. Returns
+    (cfg, B, V, {device: (augmented frames, loss, head gradients)})."""
     from video_rep_learning_tpu_torch import evaluate as cli
     from video_rep_learning_tpu_torch.algos import SCL
     from video_rep_learning_tpu_torch.data import construct_dataloader
@@ -870,43 +933,101 @@ def phase_step_card_vs_cpu(data_root):
                                                           ssl_batch_augment)
 
     cfg = cli.load_config(cli.parse_cli(
-        ["--cfg_file", CFG_FILE, "--opts", "USE_AMP", "False", "TRAIN.NUM_FRAMES",
-         "16", "DATA.NUM_WORKERS", "0", "MODEL.EMBEDDER_MODEL.FC_DROPOUT_RATE",
+        ["--cfg_file", cfg_file, "--opts", "USE_AMP", "False", "TRAIN.NUM_FRAMES",
+         str(frames), "DATA.NUM_WORKERS", "0", "MODEL.EMBEDDER_MODEL.FC_DROPOUT_RATE",
          "0.0"])[0])
     cfg.PATH_TO_DATASET = os.path.join(data_root, "pouring")
     loader, _ = construct_dataloader(cfg, "train")
     batch = next(iter(loader))
     B, V, _, H, W, _ = batch["videos"].shape
-    # the loader's masks, lengths and steps, with frames that differ in place
-    # of the synthetic set's (mostly a flat background)
-    videos = differing_frames(tuple(batch["videos"].shape), SEED)
+    videos = differing_frames(tuple(batch["videos"].shape), seed)
     aug = AugmentParams(image_size=cfg.IMAGE_SIZE)
     sampled = sample_ssl_batch(torch.Generator().manual_seed(SEED), B, V, H, W,
                                batch["dims"], aug)
-    sampled["fscal"][:, [0, 5]] = 1  # jitter and blur on: the whole chain runs
-    out, cap = {}, {}
-
-    def capture(mod, inp, feats):  # layer4's input and upstream gradient
-        cap["x"] = inp[0].detach()
-        feats.register_hook(lambda g: cap.__setitem__("g", g.detach()))
-
-    _reset_launches()
+    sampled["fscal"][:, [0, 5]] = 1
+    out = {}
     for dev in ("cuda", "cpu"):
         torch.manual_seed(SEED)
         model = build_model(cfg, dev)
-        named = set_trainable(model, cfg.MODEL.TRAIN_BASE)
+        set_trainable(model, cfg.MODEL.TRAIN_BASE)
         model.train()
-        hook = model.res_finetune.register_forward_hook(capture)
+        remove = hook(model) if hook else None
         tb = {"videos": torch.as_tensor(videos).to(dev)}
         for k in ("video_masks", "seq_lens", "chosen_steps"):
             tb[k] = torch.as_tensor(batch[k]).to(dev)
         tb["videos"] = ssl_batch_augment(tb["videos"], sampled, aug)
         loss = SCL(cfg).compute_loss(model, tb)["loss"]
         loss.backward()
-        hook.remove()
-        out[dev] = (tb["videos"].float().cpu(), loss.item(),
-                    {n: p.grad.float().cpu() for n, p in named if p.grad is not None})
+        if remove:
+            remove()
+        out[dev] = (tb["videos"].float().cpu(), loss.item(), _head_grads(model))
+        del model
+    return cfg, B, V, out
+
+
+def _rel(x, y, floor=1e-30):
+    """max |x - y| relative to the largest |y|, at least `floor`."""
+    return ((x.double() - y.double()).abs().max().item()
+            / max(y.abs().max().item(), floor))
+
+
+def _floor(grads):
+    """STEP_TOL's floor: 1% of the largest gradient of `grads`."""
+    return 1e-2 * max(g.abs().max().item() for g in grads)
+
+
+def check_step(what, out, groups, held_elsewhere=()):
+    """Log and check one card-vs-CPU step: frames, loss and each group of
+    gradient tensors against STEP_TOL; the groups in `held_elsewhere` are
+    logged only. Returns (ok, the CPU's gradients)."""
+    (fa, la, ga), (fb, lb, gb) = out["cuda"], out["cpu"]
+    f_err = (fa - fb).abs().max().item()
+    l_err = abs(la - lb) / abs(lb)
+    names = {g: [n for n in gb if n.startswith(p)] for g, p in groups}
+    if sorted(sum(names.values(), [])) != sorted(gb) or set(ga) != set(gb):
+        raise AssertionError(f"the gradient tensors do not match the groups: {sorted(gb)}")
+    ok = f_err <= STEP_TOL["frames"] and l_err <= STEP_TOL["loss"]
+    floor = _floor(gb[n] for g, ns in names.items() if g not in held_elsewhere
+                   for n in ns)
+    log(f"card vs CPU, {what}, TF32 off: frames err {f_err:.3e} (tol "
+        f"{STEP_TOL['frames']:.0e}), loss {la:.6f} vs {lb:.6f} (rel {l_err:.2e}, "
+        f"tol {STEP_TOL['loss']:.0e}); gradients, each tensor relative to its "
+        f"largest value, at least {floor:.2e} (1% of the largest held one):")
+    for group, ns in names.items():
+        err, worst = max((_rel(ga[n], gb[n], floor), n) for n in ns)
+        if group not in held_elsewhere:
+            ok &= err <= STEP_TOL["grads"]
+        log(f"  {group} ({len(ns)} tensors, largest |g| "
+            f"{max(gb[n].abs().max().item() for n in ns):.3e}), fp32: worst {worst} "
+            f"err {err:.2e} " + (f"(tol {STEP_TOL['grads']:.0e})"
+                                 if group not in held_elsewhere else "(held in fp64 below)"))
+    return ok, names
+
+
+def phase_step_card_vs_cpu(data_root):
+    """One fp32 CARL training step on the card and on the CPU, full width
+    with 16 frames a view (`fp32_step_card_and_cpu`). Without USE_AMP the
+    crop is the plain matmul and the photometric-only kernel runs. Then
+    layer4 alone in fp64 on both devices, from the CPU step's layer3
+    features and upstream gradient."""
+    from video_rep_learning_tpu_torch.models import build_model
+
+    cap = {}
+
+    def capture(model):  # layer4's input and upstream gradient
+        def hook(mod, inp, feats):
+            cap["x"] = inp[0].detach()
+            feats.register_hook(lambda g: cap.__setitem__("g", g.detach()))
+        return model.res_finetune.register_forward_hook(hook).remove
+
+    _reset_launches()
+    cfg, B, V, out = fp32_step_card_and_cpu(CFG_FILE, data_root, 16, SEED, capture)
     launches = _read_launches()
+    ok, groups = check_step(f"one fp32 training step ({B} clip x {V} views x 16 "
+                            f"frames that differ, full width)", out, GRAD_GROUPS,
+                            held_elsewhere=("layer4",))
+    log(f"  photometric launches {launches['photometric']}")
+    ok &= launches["photometric"] > 0
     # layer4 in fp64 on both devices, from the CPU step's input and upstream
     # gradient (the same initial weights)
     g64 = {}
@@ -915,38 +1036,12 @@ def phase_step_card_vs_cpu(data_root):
         layer4 = build_model(cfg, dev).res_finetune.double().train()
         layer4(cap["x"].to(dev, torch.float64)).backward(cap["g"].to(dev, torch.float64))
         g64[dev] = {"res_finetune." + n: p.grad.cpu() for n, p in layer4.named_parameters()}
-    (fa, la, ga), (fb, lb, gb) = out["cuda"], out["cpu"]
-
-    def rel(x, y):
-        """|x - y| at its largest, relative to the largest |y| (at least 1)."""
-        return (x.double() - y.double()).abs().max().item() / max(
-            1.0, y.abs().max().item())
-
-    f_err = (fa - fb).abs().max().item()
-    l_err = abs(la - lb) / abs(lb)
-    groups = {g: [n for n in gb if n.startswith(p)] for g, p in GRAD_GROUPS}
-    if sorted(sum(groups.values(), [])) != sorted(gb) or set(ga) != set(gb):
-        raise AssertionError("the gradient tensors do not match the groups")
-    log(f"card vs CPU, one fp32 training step ({B} clip x {V} views x 16 "
-        f"frames that differ, full width, TF32 off): frames err {f_err:.3e} "
-        f"(tol {STEP_TOL['frames']:.0e}), loss {la:.6f} vs {lb:.6f} (rel "
-        f"{l_err:.2e}, tol {STEP_TOL['loss']:.0e}), photometric launches "
-        f"{launches['photometric']}; gradients, each tensor relative to its "
-        f"largest value (at least 1):")
-    ok = (f_err <= STEP_TOL["frames"] and l_err <= STEP_TOL["loss"]
-          and launches["photometric"] > 0)
-    for group, names in groups.items():
-        err, worst = max((rel(ga[n], gb[n]), n) for n in names)
-        if group != "layer4":
-            ok &= err <= STEP_TOL["grads"]
-        log(f"  {group} ({len(names)} tensors), fp32: worst {worst} err "
-            f"{err:.2e} " + (f"(tol {STEP_TOL['grads']:.0e})" if group != "layer4"
-                             else "(held in fp64 below)"))
     layer4 = groups["layer4"]
-    e64, w64 = max((rel(g64["cuda"][n], g64["cpu"][n]), n) for n in layer4)
+    floor = _floor(g64["cpu"].values())
+    e64, w64 = max((_rel(g64["cuda"][n], g64["cpu"][n], floor), n) for n in layer4)
     ok &= e64 <= STEP_TOL["layer4_fp64"] and set(g64["cpu"]) == set(layer4)
-    own = {dev: max(rel(g[n], g64["cpu"][n]) for n in layer4)
-           for dev, g in (("card", ga), ("CPU", gb))}
+    own = {dev: max(_rel(out[d][2][n], g64["cpu"][n], floor) for n in layer4)
+           for dev, d in (("card", "cuda"), ("CPU", "cpu"))}
     log(f"  layer4 in fp64 on the CPU step's input and upstream gradient: "
         f"card vs CPU worst {w64} err {e64:.2e} (tol "
         f"{STEP_TOL['layer4_fp64']:.0e}); fp32 layer4 gradients against "
@@ -1071,6 +1166,362 @@ def phase_mvf_profile(cfg, model, item):
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+def _peak_mib(fn):
+    """fn's peak device memory above what was allocated before it, MiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+SCL_PASSES = ("scl_rowsum", "scl_loss_rows", "scl_srow", "scl_grad")
+SCL_WORK = dict(zip(SCL_PASSES, ("rowsum", "loss", "srow", "grad")))  # bounds.scl_fused's
+
+
+def phase_scl_kernels():
+    """The fused SCL kernels (#10) against their plain versions at every
+    SCL_SHAPES size and negative type: each pass's rows, then the loss and
+    the gradient through `scl_loss_fused` against `scl_sequence_loss`; each
+    pass timed beside its plain version and its bound at N = 480 (the
+    pouring_mvf step) and 8640 (the auto gate's reach); peak memory of the
+    plain and fused loss + gradient at 8640; the auto gate at 8640."""
+    from video_rep_learning_tpu_torch.algos.scl import (scl_loss_dispatch,
+                                                        scl_sequence_loss)
+    from video_rep_learning_tpu_torch.ops import bounds, scl
+
+    entries = {}
+    for B, T in SCL_SHAPES:
+        N = B * 2 * T
+        for neg in SCL_NEGATIVES:
+            e4, lens, steps, masks = scl.sample_inputs(B, T, seed=N, device="cuda")
+            C = e4.shape[-1]
+            p = dict(temperature=0.1, label_varience=10.0,
+                     single="single" in neg, noself="noself" in neg)
+            e, meta = scl.pad_inputs(e4.reshape(N, C), scl.build_meta(lens, steps, masks),
+                                     scl.block_layout(N))
+            rows = scl.scl_rowsum(e, meta, **p)
+            s = scl.scl_srow(e, meta, rows, **p)
+            # each pass and its plain version on the kernels' own rows and S
+            calls = {"scl_rowsum": (lambda: scl.scl_rowsum(e, meta, **p),
+                                    lambda: scl.rowsum_reference(e, meta, **p)),
+                     "scl_loss_rows": (lambda: scl.scl_loss_rows(e, meta, rows, **p),
+                                       lambda: scl.loss_rows_reference(e, meta, rows, **p)),
+                     "scl_srow": (lambda: scl.scl_srow(e, meta, rows, **p),
+                                  lambda: scl.srow_reference(e, meta, rows, **p)),
+                     "scl_grad": (lambda: scl.scl_grad(e, meta, rows, s, **p),
+                                  lambda: scl.grad_reference(e, meta, rows, s, **p))}
+            got = {"scl_rowsum": rows, "scl_loss_rows": calls["scl_loss_rows"][0](),
+                   "scl_srow": s, "scl_grad": calls["scl_grad"][0]()}
+            torch.cuda.synchronize()
+            plain = {k: ref() for k, (_, ref) in calls.items()}
+            # negsum and possum each against its own largest value
+            errs = {k: max(_rel(got[k][:, c], plain[k][:, c]) for c in (0, 1))
+                    if k == "scl_rowsum" else _rel(got[k], plain[k]) for k in SCL_PASSES}
+            abs_errs = {k: (got[k] - plain[k]).abs().max().item() for k in SCL_PASSES}
+            fused_e, plain_e = (e4.clone().requires_grad_() for _ in range(2))
+            fused = scl.scl_loss_fused(fused_e, lens, steps, masks, 0.1, 10.0, neg)
+            fused.backward()
+            ref = scl_sequence_loss(plain_e, lens, steps, masks, temperature=0.1,
+                                    label_varience=10.0, negative_type=neg)["loss"]
+            ref.backward()
+            l_err = abs(fused.item() - ref.item()) / abs(ref.item())
+            g_err = _rel(fused_e.grad, plain_e.grad)
+            ok = (all(errs[k] <= SCL_TOL["grad" if k == "scl_grad" else "rows"]
+                      for k in SCL_PASSES)
+                  and l_err <= SCL_TOL["loss"] and g_err <= SCL_TOL["grad"]
+                  and all(bool(torch.isfinite(t).all()) for t in got.values())
+                  and not rows[N:].any() and not got["scl_grad"][N:].any())
+            log(f"kernel vs plain scl N={N} ({B}x2x{T}) {neg}: rows/loss/S/grad "
+                f"passes err " + "/".join(f"{errs[k]:.2e}" for k in SCL_PASSES)
+                + f" of the largest value (tol {SCL_TOL['rows']:.0e}, grad "
+                f"{SCL_TOL['grad']:.0e}); loss {fused.item():.6f} vs {ref.item():.6f} "
+                f"(rel {l_err:.2e}, tol {SCL_TOL['loss']:.0e}); dL/de err {g_err:.2e} "
+                f"(tol {SCL_TOL['grad']:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the fused SCL kernels disagree at N={N} {neg}")
+            if N not in (480, 8640) or neg != "single_noself":
+                continue
+            # times beside the plain passes and the bound of the pairs these
+            # inputs need: every pair with a negative weight or a positive
+            # label for passes 1 and 4, the positives alone for 2 and 3
+            pairs, positives = (int(m.sum()) for m in scl.work_pairs(
+                meta, single=p["single"], noself=p["noself"]))
+            work = bounds.scl_fused(N, C, pairs=pairs, positives=positives)
+            for name in SCL_PASSES:
+                ms, plain_ms, _ = timed(*calls[name])
+                b_ms, b_by = bounds.bound(*work[SCL_WORK[name]])
+                log(f"time {name} N={N} single_noself fp32: kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                    f"{positives if SCL_WORK[name] in ('loss', 'srow') else pairs} of "
+                    f"{N * N} pairs), library none")
+                if N == 480:  # the shape the MV-Former training path gives it
+                    entries[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                         bound_by=b_by, library_ms=None,
+                                         max_abs_err=abs_errs[name])
+
+            def fused_step():
+                x = e4.clone().requires_grad_()
+                scl.scl_loss_fused(x, lens, steps, masks, 0.1, 10.0, neg).backward()
+
+            def plain_step():
+                x = e4.clone().requires_grad_()
+                scl_sequence_loss(x, lens, steps, masks, temperature=0.1,
+                                  label_varience=10.0, negative_type=neg)["loss"].backward()
+
+            f_ms, p_ms, _ = timed(fused_step, plain_step)
+            fb = [bounds.bound(*work[k])[0] for k in ("forward", "backward")]
+            log(f"time fused SCL loss + gradient N={N}: kernels {f_ms:.4f} ms, plain "
+                f"scl_sequence_loss + autograd {p_ms:.4f} ms, bound {sum(fb):.4f} ms "
+                f"(forward {fb[0]:.4f}, backward {fb[1]:.4f}; operations)")
+            if N == 8640:
+                mem = {k: _peak_mib(f) for k, f in (("plain", plain_step),
+                                                    ("fused", fused_step))}
+                log(f"peak device memory of loss + gradient at N={N}: plain "
+                    f"{mem['plain']:.1f} MiB, fused {mem['fused']:.1f} MiB "
+                    f"(torch.cuda.max_memory_allocated above the inputs)")
+                # the auto gate (VRL_FUSED_SCL unset) takes the kernels here
+                saved = os.environ.pop("VRL_FUSED_SCL", None)
+                try:
+                    _reset_launches()
+                    x = e4.clone().requires_grad_()
+                    scl_loss_dispatch(x, lens, steps, masks, temperature=0.1,
+                                      label_varience=10.0, positive_type="gauss",
+                                      negative_type=neg).backward()
+                    torch.cuda.synchronize()
+                    gate = {k: v for k, v in _read_launches().items() if k in SCL_PASSES}
+                finally:
+                    if saved is not None:
+                        os.environ["VRL_FUSED_SCL"] = saved
+                log(f"auto gate (VRL_FUSED_SCL unset) at N={N}: launches {json.dumps(gate)}")
+                if any(v != 1 for v in gate.values()):
+                    raise AssertionError(f"the auto gate did not take the kernels at N={N}")
+            del e, meta, rows, s, plain, got, calls
+            torch.cuda.empty_cache()
+    return entries
+
+
+def seeded_mvf_checkpoint(cfg):
+    """A reference-layout `.pth` of seeded full-width MV-Former weights (the
+    DINO weights are not in the repository), and its state dict."""
+    from video_rep_learning_tpu_torch.models import build_model, save_checkpoint
+
+    torch.manual_seed(SEED)
+    model = build_model(cfg)
+    path = save_checkpoint(model, os.path.join(WORK, "mvf_seed"), 0)
+    return path, model.state_dict()
+
+
+def phase_mvf_train_path(data_root, card):
+    """`python -m video_rep_learning_tpu_torch.train` on
+    configs_mvf/pouring_mvf.yml at full width under VRL_FUSED_SCL=1, warm
+    started from a seeded checkpoint: one epoch over the 6 train videos with
+    a checkpoint, then `--continue_train` for a second; then warm steps and
+    a profiled one, under the same flag."""
+    saved = os.environ.get("VRL_FUSED_SCL")
+    os.environ["VRL_FUSED_SCL"] = "1"
+    try:
+        return _mvf_train_path(data_root, card)
+    finally:
+        if saved is None:
+            os.environ.pop("VRL_FUSED_SCL", None)
+        else:
+            os.environ["VRL_FUSED_SCL"] = saved
+
+
+def _mvf_train_path(data_root, card):
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.evaluation import TASK_REGISTRY
+    from video_rep_learning_tpu_torch.train.cli import main as train_main
+
+    logdir = os.path.join(WORK, "mvf_train_logs")
+    cfg = cli.load_config(cli.parse_cli(["--cfg_file", MVF_CFG_FILE])[0])
+    seed_path, seed_state = seeded_mvf_checkpoint(cfg)
+
+    def argv(epochs, *flags):
+        return ["--workdir", data_root, "--logdir", logdir, "--cfg_file",
+                MVF_CFG_FILE, "--device", "cuda", *flags, "--opts", *smoke_opts(
+                    ["TRAIN.MAX_EPOCHS", str(epochs), "LOGGING.REPORT_INTERVAL",
+                     "3", "RNG_SEED", str(SEED), "MODEL.PRETRAINED_CHECKPOINT",
+                     seed_path])]
+
+    TASK_REGISTRY["embedding_check"] = EmbeddingCheck
+    EmbeddingCheck.seen = []
+    _reset_launches()
+    t0 = time.time()
+    train_main(argv(1))
+    torch.cuda.synchronize()
+    log(f"MV-Former train path: epoch 0 in {time.time() - t0:.2f} s cold "
+        f"(build, warm start, loaders, 6 steps, checkpoint, val loss, evaluation)")
+    ckpts = sorted(os.listdir(os.path.join(logdir, "checkpoints")))
+    if ckpts != ["checkpoint_epoch_00000.pth"]:
+        raise AssertionError(f"expected one epoch-0 checkpoint, found {ckpts}")
+    t0 = time.time()
+    trainer = train_main(argv(2, "--continue_train", "--tempcfg"))
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    steps = 2 * len(trainer.train_loader)
+    log(f"MV-Former train path: resumed at epoch {trainer.start_epoch}, epoch 1 in "
+        f"{time.time() - t0:.2f} s; {steps} training steps; launches on the path "
+        f"{json.dumps(launches)}")
+    if trainer.start_epoch != 1:
+        raise AssertionError("the second run did not resume from epoch 0")
+    blocks = launches["vit_attention_block"]
+    if (blocks <= 0 or blocks != 12 * launches["layernorm"]
+            or launches["packed_attn"] != blocks or launches["ln_gemm"] != 3 * blocks):
+        raise AssertionError(f"ViT launches do not follow its blocks: {launches}")
+    for name in ("crop_photometric", "flash_attn_fwd", "flash_attn_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the MV-Former training path never launched {name}")
+    # every forward (training, val loss) runs passes 1-2, every backward 3-4
+    if (launches["scl_rowsum"] != launches["scl_loss_rows"]
+            or launches["scl_srow"] != steps or launches["scl_grad"] != steps
+            or launches["scl_rowsum"] < steps):
+        raise AssertionError(f"the fused SCL launches do not follow the steps: {launches}")
+    if len(EmbeddingCheck.seen) != 4:
+        raise AssertionError("the embedding check did not run after each epoch")
+
+    # exactly the trainable tensors moved; the ViT is bit-identical
+    trainable = {n for n, p in trainer.model.named_parameters() if p.requires_grad}
+    moved = vit = vit_moved = 0
+    for n, v in trainer.model.state_dict().items():
+        same = torch.equal(v.cpu(), seed_state[n])
+        if n in trainable:
+            moved += not same
+        elif n.startswith("backbone."):
+            vit += 1
+            vit_moved += not same
+    log(f"MV-Former train path: {moved} of {len(trainable)} trainable tensors moved, "
+        f"{vit_moved} of {vit} backbone.* tensors moved")
+    if moved != len(trainable) or vit_moved or not vit or any(
+            n.startswith("backbone.") for n in trainable):
+        raise AssertionError("the wrong MV-Former parameters moved")
+
+    batch, step_ms, losses = warm_steps(trainer, 3)
+    clips = batch["videos"].shape[0]
+    log(f"MV-Former train step (warm, bf16 ViT-B/8, {clips} clip x 2 views x "
+        f"{trainer.cfg.TRAIN.NUM_FRAMES} frames of 256x256 uint8 -> 224 px, H2D + "
+        f"augment + ViT + head + fused SCL + backward + Adam; VRL_FUSED_SCL "
+        f"{os.environ.get('VRL_FUSED_SCL', 'auto')}): {step_ms:.1f} ms/step, "
+        f"{clips / step_ms * 1e3:.3f} clips/s on {card}; losses {losses}")
+    own = dict(OWN_KERNELS, scl_rows_kernel="fused SCL passes 1-3",
+               scl_grad_kernel="fused SCL pass 4",
+               dkdv_kernel="flash_attn_bwd dk/dv", dq_kernel="flash_attn_bwd dq",
+               photometric_kernel="crop_photometric")
+    profile_train_step(trainer, batch, "MV-Former", "mvf_train_step_trace.json", own)
+    return launches
+
+
+def _head_grads(model):
+    return {n: p.grad.detach().float().cpu().clone()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def phase_mvf_fused_vs_plain(data_root):
+    """One step of k400_mvf.yml's model and loss (SMART_FEATS 3,7,11,
+    batch_noself, 2 clips x 2 views x 80 frames; its dataset keys pointed at
+    the synthetic Pouring set) under VRL_FUSED_SCL=1 and then 0, on the same
+    weights, batch, augmentation and dropout: the loss and every head
+    gradient agree, and only the first runs the #10 kernels."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.train import Trainer
+
+    cfg = cli.load_config(cli.parse_cli(
+        ["--cfg_file", K400_MVF_CFG_FILE, "--opts", "DATASETS", "[pouring]",
+         "PATH_TO_DATASET", "pouring", "TRAIN.BATCH_SIZE", "2",
+         "DATA.NUM_WORKERS", "0", "RNG_SEED", str(SEED)])[0])
+    cfg.PATH_TO_DATASET = os.path.join(data_root, "pouring")
+    trainer = Trainer(cfg, no_eval=True, device="cuda")
+    trainer.train_loader.set_epoch(0)
+    batch = next(iter(trainer.train_loader))
+    dev = trainer.device_batch(batch)
+    videos = trainer.augment(batch, dev, 0, 0, 0)
+    B, V, T = dev["video_masks"].shape
+    out = {}
+    saved = os.environ.get("VRL_FUSED_SCL")
+    try:
+        for flag in ("1", "0"):
+            os.environ["VRL_FUSED_SCL"] = flag
+            trainer.model.train()
+            trainer.optimizer.zero_grad()
+            _reset_launches()
+            torch.manual_seed(SEED)  # the same dropout in both steps
+            loss = trainer.algo.compute_loss(trainer.model,
+                                             dict(dev, videos=videos))["loss"]
+            loss.backward()
+            torch.cuda.synchronize()
+            scl_launches = {k: v for k, v in _read_launches().items() if k in SCL_PASSES}
+            out[flag] = (loss.item(), _head_grads(trainer.model), scl_launches)
+    finally:
+        if saved is None:
+            os.environ.pop("VRL_FUSED_SCL", None)
+        else:
+            os.environ["VRL_FUSED_SCL"] = saved
+    (lf, gf, nf), (lp, gp, np_) = out["1"], out["0"]
+    l_err = abs(lf - lp) / abs(lp)
+    # a tensor whose gradient is 0 in exact arithmetic (the attention key
+    # biases: softmax ignores a shift shared by every key) holds rounding
+    # noise only: STEP_TOL's floor
+    floor = _floor(gp.values())
+    errs = {n: _rel(gf[n], gp[n], floor) for n in gp}
+    worst = max(errs, key=errs.get)
+    ok = (l_err <= FUSED_STEP_TOL["loss"] and set(gf) == set(gp)
+          and errs[worst] <= FUSED_STEP_TOL["grads"]
+          and all(v == 1 for v in nf.values()) and not any(np_.values())
+          and not any(n.startswith("backbone.") for n in gp))
+    log(f"fused vs plain SCL in one MV-Former step (k400_mvf.yml: SMART_FEATS "
+        f"{cfg.MODEL.EMBEDDER_MODEL.SMART_FEATS}, {cfg.SCL.NEGATIVE_TYPE}, {B} clips x "
+        f"{V} views x {T} frames = N {B * V * T}): loss {lf:.6f} vs {lp:.6f} (rel "
+        f"{l_err:.2e}, tol {FUSED_STEP_TOL['loss']:.0e}); {len(gp)} head gradient "
+        f"tensors, worst {worst} {errs[worst]:.2e} of its largest value, at least "
+        f"{floor:.2e} (tol "
+        f"{FUSED_STEP_TOL['grads']:.0e}); #10 launches fused {json.dumps(nf)}, plain "
+        f"{json.dumps(np_)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the fused and plain SCL steps disagree")
+
+
+def phase_mvf_step_card_vs_cpu(data_root):
+    """One fp32 MV-Former training step on the card and on the CPU
+    (`fp32_step_card_and_cpu`): the full-width ViT-B/8 on MVF_STEP_FRAMES
+    frames a view, every head gradient tensor held."""
+    _, B, V, out = fp32_step_card_and_cpu(MVF_CFG_FILE, data_root, MVF_STEP_FRAMES,
+                                          SEED + 1)
+    ok, _ = check_step(f"one fp32 MV-Former training step ({B} clip x {V} views x "
+                       f"{MVF_STEP_FRAMES} frames that differ, full-width ViT-B/8)",
+                       out, MVF_GRAD_GROUPS)
+    log(f"card vs CPU MV-Former training step {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's fp32 MV-Former step disagrees with the CPU's")
+
+
+def time_unported_library(n=40, N=785, D=768):
+    """Rows #7 and #9, still to port: the time of the PyTorch calls that
+    compute their functions at the MV-Former chunk in bf16, for PERF.md's
+    table. Used nowhere in the port."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(SEED + 4)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    x = (r(n, N, D) * 2 + 0.5).to("cuda", torch.bfloat16)
+    w1 = (r(4 * D, D) * D ** -0.5).to("cuda", torch.bfloat16)
+    w2 = (r(D, 4 * D) * (4 * D) ** -0.5).to("cuda", torch.bfloat16)
+    b1, b2, ln_s, ln_b = (t.to("cuda", torch.bfloat16) for t in (
+        0.1 * r(4 * D), 0.1 * r(D), 1 + 0.1 * r(D), 0.1 * r(D)))
+    t7 = (cuda_ms(lambda: F.gelu(F.linear(x, w1, b1)), reps=20)
+          + cuda_ms(lambda: F.gelu(F.linear(x, w1, b1)), reps=20)) / 2
+
+    def mlp():
+        h = F.gelu(F.linear(F.layer_norm(x, (D,), ln_s, ln_b, 1e-6), w1, b1))
+        return x + F.linear(h, w2, b2)
+
+    t9 = (cuda_ms(mlp, reps=20) + cuda_ms(mlp, reps=20)) / 2
+    log(f"library time, row #7 (to port): linear + gelu ({n}, {N}, {D}) -> {4 * D} "
+        f"bf16 {t7:.4f} ms; row #9 (to port): layer_norm + linear + gelu + linear "
+        f"+ add ({n}, {N}, {D}), F {4 * D}, bf16 {t9:.4f} ms")
+
+
 SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
     "flash_attn_fwd": ("csrc/flash_attn_fwd.cu", "attention_pallas.py:79"),
     "flash_attn_bwd": ("csrc/flash_attn_bwd.cu", "attention_pallas.py:98"),
@@ -1081,6 +1532,10 @@ SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
     "packed_attn": ("csrc/packed_attn.cu", "attention_pallas.py:485"),
     # three launches of csrc/ln_gemm.cu and csrc/packed_attn.cu
     "vit_attention_block": ("ops/vit_block.py", "vit_block_pallas.py:102"),
+    "scl_rowsum": ("csrc/scl.cu", "scl_pallas.py:104"),
+    "scl_loss_rows": ("csrc/scl.cu", "scl_pallas.py:122"),
+    "scl_srow": ("csrc/scl.cu", "scl_pallas.py:151"),
+    "scl_grad": ("csrc/scl.cu", "scl_pallas.py:176"),
 }
 
 
@@ -1096,18 +1551,30 @@ def main():
     entries["flash_attn_fwd"]["max_abs_err"] = fwd_err
     entries.update(phase_augment())
     entries.update(phase_vit_kernels())
+    time_unported_library()
+    entries.update(phase_scl_kernels())
     eval_launches = phase_main_path(data_root, card)
     phase_card_vs_cpu(data_root, os.path.join(WORK, "logs"))
     trainer, batch, train_launches = phase_train_path(data_root, card)
     phase_profile(trainer, batch)
+    del trainer, batch
     step_launches = phase_step_card_vs_cpu(data_root)
     mvf_launches, mvf_logdir = phase_mvf_path(data_root, card)
     phase_card_vs_cpu(data_root, mvf_logdir, MVF_CFG_FILE, MVF_CARD_VS_CPU,
                       "MV-Former")
+    torch.cuda.empty_cache()
+    mvf_train_launches = phase_mvf_train_path(data_root, card)
+    torch.cuda.empty_cache()
+    phase_mvf_fused_vs_plain(data_root)
+    torch.cuda.empty_cache()
+    phase_mvf_step_card_vs_cpu(data_root)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         if name in VIT_KERNELS:
             path, launches = "MV-Former eval", mvf_launches[name]
+        elif name in SCL_PASSES:
+            path = "MV-Former training (2 epochs, VRL_FUSED_SCL=1)"
+            launches = mvf_train_launches[name]
         elif name == "photometric":
             path, launches = "fp32 training step", step_launches[name]
         else:
@@ -1120,6 +1587,7 @@ def main():
             "launches": launches, "path": path,
             "eval_launches": eval_launches if name == "flash_attn_fwd" else 0,
             "mvf_eval_launches": mvf_launches[name],
+            "mvf_train_launches": mvf_train_launches[name],
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"]})

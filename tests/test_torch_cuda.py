@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels (flash-attention forward and backward, the
-SSL crop+photometric and photometric kernels, and the ViT's LayerNorm,
-LN + matmul, packed attention and attention half-block) against their plain
-PyTorch versions, and the wrappers' refusal of what their kernels do not
-take. These need a CUDA card and skip elsewhere; on the GPU machine run
+SSL crop+photometric and photometric kernels, the ViT's LayerNorm,
+LN + matmul, packed attention and attention half-block, and the four passes
+of the fused SCL loss) against their plain PyTorch versions, and the
+wrappers' refusal of what their kernels do not take. These need a CUDA card and skip elsewhere; on the GPU machine run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from video_rep_learning_tpu_torch.ops import (attention, layernorm, matmul,
-                                              photometric, vit_block)
+                                              photometric, scl, vit_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -296,3 +296,71 @@ def test_vit_attention_block_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="w must be contiguous"):
         vit_block.vit_attention_block(x, ones, ones, wqkv.bfloat16(),
                                       torch.zeros(384, device=cuda), wp, ones, 2)
+
+
+# the fused SCL passes, fp32 on both sides with TF32 off: the same per-pair
+# math summed in another order over up to 480 x 512 pairs. Row sums of
+# exp(l) (l <= 1 / tau = 10) and the loss rows: 1e-5 relative (+1e-5 for
+# rows near 0); the loss 1e-5 relative; the gradient 1e-4 of its largest
+# value, as the JAX package holds its fused backward against XLA
+SCL_ROW_RTOL, SCL_GRAD_TOL = 1e-5, 1e-4
+
+
+@pytest.mark.parametrize("neg", ["single_noself", "batch_noself"])
+@pytest.mark.parametrize("B, T", [(1, 240), (2, 77)], ids=["N480", "N308"])
+def test_scl_passes_match_plain(cuda, B, T, neg):
+    """Each pass on padded inputs (480 and 308 frames, neither a multiple of
+    the 64-row tile), then the loss and gradient through `scl_loss_fused`
+    against the plain passes' and `scl_sequence_loss`'s."""
+    from video_rep_learning_tpu_torch.algos.scl import scl_sequence_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    e4, lens, steps, masks = scl.sample_inputs(B, T, seed=B, device=cuda)
+    N, C = B * 2 * T, e4.shape[-1]
+    params = dict(temperature=0.1, label_varience=10.0,
+                  single="single" in neg, noself="noself" in neg)
+    e, meta = scl.pad_inputs(e4.reshape(N, C), scl.build_meta(lens, steps, masks),
+                             scl.block_layout(N))
+    before = [f.launches for f in (scl.scl_rowsum, scl.scl_loss_rows, scl.scl_srow,
+                                   scl.scl_grad)]
+    rows = scl.scl_rowsum(e, meta, **params)
+    loss_rows = scl.scl_loss_rows(e, meta, rows, **params)
+    s = scl.scl_srow(e, meta, rows, **params)
+    de = scl.scl_grad(e, meta, rows, s, **params)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (scl.scl_rowsum, scl.scl_loss_rows, scl.scl_srow,
+                                 scl.scl_grad)] == [b + 1 for b in before]
+    want_rows = scl.rowsum_reference(e, meta, **params)
+    torch.testing.assert_close(rows, want_rows, rtol=SCL_ROW_RTOL, atol=1e-6)
+    torch.testing.assert_close(loss_rows, scl.loss_rows_reference(e, meta, rows, **params),
+                               rtol=SCL_ROW_RTOL, atol=1e-5)
+    torch.testing.assert_close(s, scl.srow_reference(e, meta, rows, **params),
+                               rtol=SCL_ROW_RTOL, atol=1e-6)
+    want_de = scl.grad_reference(e, meta, rows, s, **params)
+    assert (de - want_de).abs().max().item() <= SCL_GRAD_TOL * want_de.abs().max().item()
+    assert not rows[N:].any() and not de[N:].any()
+
+    got_e, want_e = (e4.clone().requires_grad_() for _ in range(2))
+    got = scl.scl_loss_fused(got_e, lens, steps, masks, 0.1, 10.0, neg)
+    got.backward()
+    want = scl_sequence_loss(want_e, lens, steps, masks, temperature=0.1,
+                             label_varience=10.0, negative_type=neg)["loss"]
+    want.backward()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    err = (got_e.grad - want_e.grad).abs().max().item()
+    assert err <= SCL_GRAD_TOL * want_e.grad.abs().max().item()
+
+
+def test_scl_rejects_bad_input(cuda):
+    kw = dict(temperature=0.1, label_varience=10.0, single=True, noself=True)
+    meta = torch.zeros(8, 64, device=cuda)
+    with pytest.raises(ValueError, match="C % 16 == 0"):
+        scl.scl_rowsum(torch.zeros(64, 136, device=cuda), meta, **kw)
+    with pytest.raises(ValueError, match="Np % 64 == 0"):
+        scl.scl_rowsum(torch.zeros(60, 128, device=cuda), meta[:, :60].contiguous(),
+                       **kw)
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        scl.scl_rowsum(torch.zeros(64, 128, device=cuda).double(), meta, **kw)
+    with pytest.raises(ValueError, match="rows must be"):
+        scl.scl_srow(torch.zeros(64, 128, device=cuda), meta,
+                     torch.zeros(64, 3, device=cuda), **kw)

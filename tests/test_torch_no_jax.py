@@ -3,7 +3,7 @@ none of flax and sklearn) and without the JAX package: in a subprocess that
 blocks all four, import the port and run a tiny CPU evaluation, from the
 `.npy` loaders through the model to the two scipy-only tasks, then two
 training steps, then an MV-Former evaluation (`configs_mvf/pouring_mvf.yml`
-with a small test ViT)."""
+with a small test ViT) and one MV-Former training step."""
 
 import os
 import subprocess
@@ -82,10 +82,22 @@ SCRIPT = textwrap.dedent("""
                                 build_eval_loaders(mvf, "val"), iterator_tasks,
                                 tasks, 0, None, "cpu")
     assert all(np.isfinite(v["pouring"]) for v in mvf_metrics.values()), mvf_metrics
+
+    mvf.TRAIN.NUM_FRAMES = 4
+    mvf_trainer = Trainer(mvf, no_eval=True, device="cpu")
+    mvf_trainer.train_loader.set_epoch(0)
+    vit_before = {n: t.clone() for n, t in mvf_trainer.model.state_dict().items()
+                  if n.startswith("backbone.")}
+    batch = next(iter(mvf_trainer.train_loader))
+    mvf_loss = float(mvf_trainer.train_step(batch, mvf_trainer.device_batch(batch),
+                                            0, 0, 1e-3))
+    assert np.isfinite(mvf_loss), mvf_loss
+    state = mvf_trainer.model.state_dict()
+    assert all(torch.equal(state[n], t) for n, t in vit_before.items())
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                     and m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
-    print("NO_JAX_OK", metrics, mvf_metrics)
+    print("NO_JAX_OK", metrics, mvf_metrics, mvf_loss)
 """)
 
 

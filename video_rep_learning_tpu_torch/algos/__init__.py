@@ -3,7 +3,7 @@ and classification algos come in a later slice."""
 
 from __future__ import annotations
 
-from .scl import SCL, scl_sequence_loss  # noqa: F401
+from .scl import SCL, scl_loss_dispatch, scl_sequence_loss  # noqa: F401
 
 ALGO_REGISTRY = {"scl": SCL}
 

@@ -13,14 +13,22 @@ the N = B*V*T frame embeddings (reference `algos/scl.py:18-105`):
                 cross-view block of the same sample
   loss        = sum(KL(label || exp_logits / sum_j weight exp_logits) * mask)
                 / sum(masks)
-The JAX package's fused SCL kernel (`ops/scl_pallas.py`) takes over only at
-N >= 8192 frames; the shipped configs stay far below, so the port has no
-counterpart yet.
+`scl_loss_dispatch` is the JAX package's gate (`algos/scl.py:92-143`):
+the fused loss (`ops/scl.py`, the CUDA kernels of `csrc/scl.cu`) with gauss
+positives on a CUDA tensor when VRL_FUSED_SCL is 1, or auto (the default)
+with N >= 8192 frames; else this plain composition. The data-mesh branch
+(a per-rank loss and pmean) waits for DDP.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+from ..ops.scl import scl_loss_fused
+
+FUSED_MIN_FRAMES = 8192
 
 
 def safe_div(a, b):
@@ -78,6 +86,29 @@ def scl_sequence_loss(embs, seq_lens, steps, masks, *, temperature: float,
     return {"loss": (kl * input_masks).sum() / m.sum()}
 
 
+def use_fused_scl(positive_type: str, device_type: str, n: int, flag: str) -> bool:
+    """The JAX package's rule (`algos/scl.py:116-122`): gauss positives, the
+    accelerator, and VRL_FUSED_SCL 1, or anything but 0 with N >= 8192."""
+    return (positive_type == "gauss" and device_type == "cuda" and flag != "0"
+            and (flag == "1" or n >= FUSED_MIN_FRAMES))
+
+
+def scl_loss_dispatch(embs, seq_lens, steps, masks, *, temperature,
+                      label_varience, positive_type, negative_type):
+    """The SCL loss (0-d) through the fused kernels or the plain composition,
+    by `use_fused_scl` with VRL_FUSED_SCL read from the environment (0 | 1 |
+    auto, default auto)."""
+    n = embs.shape[0] * embs.shape[1] * embs.shape[2]
+    flag = os.environ.get("VRL_FUSED_SCL", "auto")  # 0 | 1 | auto
+    if use_fused_scl(positive_type, embs.device.type, n, flag):
+        return scl_loss_fused(embs, seq_lens, steps, masks, temperature,
+                              label_varience, negative_type)
+    return scl_sequence_loss(
+        embs, seq_lens, steps, masks, temperature=temperature,
+        label_varience=label_varience, positive_type=positive_type,
+        negative_type=negative_type)["loss"]
+
+
 class SCL:
     """Algo driver (`algos/scl.py:18-50`): flattens the two-view batch, runs
     the model with the projection head and applies the sequence loss."""
@@ -89,22 +120,25 @@ class SCL:
         self.positive_type = cfg.SCL.POSITIVE_TYPE
         self.negative_type = cfg.SCL.NEGATIVE_TYPE
 
-    def compute_loss(self, model, batch):
+    def compute_loss(self, model, batch, backbone_warmup_active=False):
         """batch: videos (B, V, T, S, S, 3) or (B, V, T, 3, S, S) augmented
         frames, video_masks (B, V, T), seq_lens (B, V), chosen_steps
         (B, V, T), all on the model's device. The model's train/eval mode
-        decides BN and dropout, as `train=` does in the JAX package."""
+        decides BN and dropout, as `train=` does in the JAX package;
+        `backbone_warmup_active` stops the gradient at the backbone's
+        features (TRAIN.BACKBONE_WARMUP)."""
         videos = batch["videos"]
         num_frames = self.cfg.TRAIN.NUM_FRAMES
         B, V, T = videos.shape[:3]
         flat = videos.reshape((B * V,) + videos.shape[2:])
         embs = model(flat, num_frames,
                      video_masks=batch["video_masks"].reshape(B * V, 1, T),
-                     project=self.cfg.MODEL.PROJECTION)
+                     project=self.cfg.MODEL.PROJECTION,
+                     backbone_warmup_active=backbone_warmup_active)
         embs = embs.reshape(B, V, num_frames, embs.shape[-1])
-        return scl_sequence_loss(
+        return {"loss": scl_loss_dispatch(
             embs, batch["seq_lens"].reshape(B, V),
             batch["chosen_steps"].reshape(B, V, num_frames),
             batch["video_masks"].reshape(B, V, num_frames),
             temperature=self.temperature, label_varience=self.label_varience,
-            positive_type=self.positive_type, negative_type=self.negative_type)
+            positive_type=self.positive_type, negative_type=self.negative_type)}

@@ -18,8 +18,11 @@ strictly.
 - Under USE_AMP the ResNet (trunk and finetuned tail) runs under bf16
   autocast and the ViT in bf16 (`models/vit.py`); the head stays fp32, as in
   the JAX package.
+- Training runs the fully frozen ViT forward only; the head trains.
+  `backbone_warmup_active` (TRAIN.BACKBONE_WARMUP) stops the gradient at
+  the backbone's features in the smart head, as in the JAX package.
 - Still to come, each with its slice: a partially frozen ViT (LAYER below
-  its depth) and a ViT under TRAIN_BASE train_all (MV-Former training),
+  its depth, with kernels #7 and #9) and a ViT under TRAIN_BASE train_all,
   late fusion over a ViT, QUANTIZE_BACKBONE (W8A8 int8 ViT matmuls).
 """
 
@@ -94,11 +97,11 @@ def _resolve_vit(cfg, name, fusion_type):
     if not (m.BASE_MODEL.LAYER < 0 or m.BASE_MODEL.LAYER >= vit.depth):
         raise NotImplementedError(
             "a partially frozen ViT (LAYER below its depth, ViTBackEnd) comes "
-            "with the MV-Former training slice")
+            "with the slice that ports kernels #7 and #9")
     if m.TRAIN_BASE == "train_all":
         raise NotImplementedError(
             "a ViT trained end to end (TRAIN_BASE train_all) comes with the "
-            "MV-Former training slice")
+            "slice of the ViT kernels' backward passes")
     if m.QUANTIZE_BACKBONE:
         raise NotImplementedError(
             "QUANTIZE_BACKBONE (W8A8 int8 ViT matmuls) comes in a later slice")
@@ -278,12 +281,13 @@ class CARLModel(nn.Module):
 
     def forward(self, x, num_frames: Optional[int] = None, video_masks=None,
                 project: bool = False, classification: bool = False,
-                true_seq_len=None):
+                backbone_warmup_active: bool = False, true_seq_len=None):
         BV, T = x.shape[:2]
         feats, cls_emb = self.backbone_flat(x.flatten(0, 1))
         feats = feats.view((BV, T) + feats.shape[1:])
         return self.head_embs(feats, cls_emb, num_frames, video_masks=video_masks,
                               project=project, classification=classification,
+                              backbone_warmup_active=backbone_warmup_active,
                               true_seq_len=true_seq_len)
 
     def backbone_flat(self, x):
@@ -294,15 +298,18 @@ class CARLModel(nn.Module):
 
     def head_embs(self, feats, cls_emb=None, num_frames: Optional[int] = None,
                   video_masks=None, project: bool = False,
-                  classification: bool = False, true_seq_len=None):
+                  classification: bool = False,
+                  backbone_warmup_active: bool = False, true_seq_len=None):
         """Everything after the backbone: feats (BV, T, ...) as
         `backbone_flat` gives them, cls_emb (BV*T, C) for a ViT ->
-        embeddings (BV, T, emb) fp32."""
+        embeddings (BV, T, emb) fp32. `backbone_warmup_active` reaches the
+        smart head only, as in the JAX package."""
         s = self.spec
         if s.fusion_type == "smart":
             if s.vit_spec is None:  # a ResNet's NCHW maps -> NHWC token grids
                 feats = feats.permute(0, 1, 3, 4, 2)
             emb = self.embed(feats, video_masks=video_masks, cls_emb=cls_emb,
+                             backbone_warmup_active=backbone_warmup_active,
                              true_len=true_seq_len)
         else:
             emb = self.embed(feats, video_masks=video_masks, true_len=true_seq_len)

@@ -158,7 +158,12 @@ class MultiEntityTransformerEmbModel(nn.Module):
             self.lin_final = nn.Linear(d_enc * ntok, d_enc)
         self.embedding_layer = nn.Linear(d_enc, embedding_size)
 
-    def forward(self, x, video_masks=None, cls_emb=None, true_len=None):
+    def forward(self, x, video_masks=None, cls_emb=None, true_len=None,
+                backbone_warmup_active: bool = False):
+        if backbone_warmup_active:
+            # no gradient into the backbone during its warmup (reference
+            # `mvformer.py:130-132`)
+            x = x.detach()
         BV, T = x.shape[:2]
         ntok = self.ntok
         tokens = x.reshape(BV * T, -1, x.shape[-1])

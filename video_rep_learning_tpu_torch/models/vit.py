@@ -17,8 +17,9 @@ With a bf16 compute type (USE_AMP) the front end keeps a bf16 copy of its
 matrices and of what flax's `dtype=bf16` casts (patch embed, cls and
 position embeddings, fc2's bias), made once at first use after a load; the
 LN parameters and the kernels' biases stay fp32, as the Pallas kernels take
-them. The partially frozen split (`ViTBackEnd`) comes with MV-Former
-training.
+them. The partially frozen split (`ViTBackEnd`) comes with the slice that
+ports kernels #7 and #9; MV-Former training runs this front end forward
+only.
 """
 
 from __future__ import annotations

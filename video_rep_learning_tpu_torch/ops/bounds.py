@@ -91,6 +91,52 @@ def attention_bwd(B, H, S, d, itemsize=4, keys=None):
     return itemsize * 8 * n + 4 * (B * S + B * H * S), 10 * H * S * keys * d
 
 
+# per-pair elementwise operations of the fused SCL passes, the least each
+# needs (fp32, outside the tensor cores; exp, log and a divide count one),
+# split into what every pair with a negative weight or a positive label needs
+# and what only a positive pair needs (cross view, both frames unmasked: the
+# label is 0 elsewhere, and so are the loss and S terms). Every pair: the
+# logit's scale and exp 2, the pair terms (mask product, two compares, three
+# selects) 6, then rowsum's w exp and add 2, the gradient's term 1 4. A
+# positive: the gaussian (divide, multiply, subtract, abs, mask select,
+# square, scale, exp, cross select) 9; the possum add 1; the loss term
+# (label divide and NaN select 2, log input 3, x log x 3, the KL's multiply,
+# subtract, select and add 4) 12; the S term (r, c 3, label 1, product and
+# add 3) 7; the gradient's term 2 (the IJ one on the S term's r, c and label
+# 4; the JI one with its transposed gaussian 9, r, c 3 and label and
+# product 4) 20 beside the S term's 7. The loss and S passes need the logit
+# only at a positive pair. {pass: (a pair, a positive)}
+SCL_OPS = {"rowsum": (8 + 2, 9 + 1), "loss": (0, 8 + 9 + 12), "srow": (0, 8 + 9 + 7),
+           "grad": (8 + 4, 9 + 7 + 20), "forward": (8 + 2, 9 + 1 + 12),
+           "backward": (8 + 4, 9 + 7 + 20)}
+
+
+def scl_fused(N, C, pairs=None, positives=None):
+    """#10: {pass or "forward" / "backward": (nbytes, flops, peak, fp32_ops)}
+    of the fused SCL loss over N frames of C channels (fp32). `pairs` counts
+    the (i, j) pairs with a negative weight or a positive label (default all
+    N^2), `positives` those of them whose label can be nonzero (default
+    `pairs`); `ops/scl.py`'s `work_pairs` gives both. The logits (2 C flops a
+    pair) are needed over `pairs` by passes 1 and 4, over `positives` by 2
+    and 3; the forward needs them once, the backward the logits and the
+    product (G + G^T) e, nonzero over `pairs`, once each. Bytes: e and the
+    (8, N) metadata in, the per-row values (or the gradient) out."""
+    pairs = N * N if pairs is None else pairs
+    positives = pairs if positives is None else positives
+    logits = {k: 2 * C * (positives if k in ("loss", "srow") else pairs)
+              for k in SCL_OPS}
+    logits["grad"] += 2 * C * pairs
+    logits["backward"] += 2 * C * pairs
+    e_meta = 4 * (N * C + 8 * N)
+    out = {"rowsum": 2 * 4 * N, "loss": 4 * N, "srow": 4 * N, "grad": 4 * N * C,
+           "forward": 4, "backward": 4 * N * C}
+    rows_in = {"rowsum": 0, "loss": 2 * 4 * N, "srow": 2 * 4 * N, "grad": 3 * 4 * N,
+               "forward": 0, "backward": 2 * 4 * N}
+    return {k: (e_meta + rows_in[k] + out[k], logits[k], PEAK_FP32,
+                a_pair * pairs + a_positive * positives)
+            for k, (a_pair, a_positive) in SCL_OPS.items()}
+
+
 # operations per output pixel of the photometric chain: the least its
 # function needs, whatever order a kernel computes it in (fp32, outside the
 # tensor cores; an add, multiply, min, max, compare, select or divide is one,
@@ -155,10 +201,12 @@ def table():
         ("#8 LayerNorm", "(40, 785, 768) bf16", *layernorm(n * N, D, 2)),
         ("#9 LN + MLP + residual", "(40, 785, 768) bf16",
          2 * (2 * tok + 8 * D * D), 4 * n * N * D * 4 * D, PEAK_BF16_TC),
-        # the loss and its gradient over N x N similarities of 128-d
-        # embeddings: the forward product, and two for the gradient
-        ("#10 SCL loss + grad", "(8192, 128) fp32",
-         4 * 2 * 8192 * 128, 3 * 2 * 8192 * 8192 * 128, PEAK_FP32),
+        # the loss and its gradient over all N x N similarities of 128-d
+        # embeddings, at N = 18 x 2 x 240 (the auto gate's reach)
+        ("#10 SCL loss (forward)", "(8640, 128) fp32",
+         *scl_fused(8640, 128)["forward"]),
+        ("#10 SCL gradient (backward)", "(8640, 128) fp32",
+         *scl_fused(8640, 128)["backward"]),
         # with every op of the chain on, and a crop that reads every line of
         # the canvas (RandomResizedCrop takes 80-100% of its area);
         # chip_smoke.py's bounds count the flags and boxes its views drew

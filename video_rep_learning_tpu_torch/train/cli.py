@@ -1,10 +1,17 @@
-"""Training on the GPU: CARL SCL with the port's kernels, auto-resuming
-from the newest `LOGDIR/checkpoints/checkpoint_epoch_*.pth`, with the
-downstream evaluation after the last epoch.
+"""Training on the GPU: CARL or MV-Former with SCL and the port's kernels,
+auto-resuming from the newest `LOGDIR/checkpoints/checkpoint_epoch_*.pth`,
+with the downstream evaluation after the last epoch.
 
     python -m video_rep_learning_tpu_torch.train --workdir DATA_ROOT \\
         --cfg_file configs/scl_transformer_config.yml --logdir LOGDIR \\
         [--continue_train] [--device cuda] [--opts KEY VALUE ...]
+    python -m video_rep_learning_tpu_torch.train --workdir DATA_ROOT \\
+        --cfg_file configs_mvf/pouring_mvf.yml --logdir LOGDIR \\
+        --opts MODEL.PRETRAINED_CHECKPOINT weights.pth
+
+VRL_FUSED_SCL=1 in the environment sends the SCL loss through the fused
+CUDA kernels at any batch size (the default, auto, from 8192 frames a step;
+0 never), as in the JAX package.
 
 The flags are the root `train.py`'s, plus `--device` (default cuda). The
 port's counterpart of that script; single-process for now. `main(argv)`

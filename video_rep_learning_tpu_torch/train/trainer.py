@@ -16,8 +16,15 @@ data wait, 1 = H2D, 2 = step dispatch, 5 = logging).
   run draws what an uninterrupted one would.
 - Losses stay on the device and are read once per epoch; the one exception
   is the REPORT_INTERVAL log line.
-- Under USE_AMP the backbone runs in bf16 autocast; parameters, the head and
-  the loss stay fp32 (bf16 has fp32's range, so no gradient scaling).
+- Under USE_AMP the backbone runs in bf16 (autocast for a ResNet, the bf16
+  weight copy for a ViT); parameters, the head and the loss stay fp32 (bf16
+  has fp32's range, so no gradient scaling).
+- MV-Former (`configs_mvf/`) trains the same way: the fully frozen ViT runs
+  forward only, in chunks, and every `backbone.*` tensor stays as loaded;
+  TRAIN.BACKBONE_WARMUP (smart fusion only) stops the head's gradient at
+  the backbone's features for its first epochs.
+- The SCL loss goes through `algos/scl.py::scl_loss_dispatch`: the fused
+  CUDA kernels under VRL_FUSED_SCL=1, or at N >= 8192 frames by default.
 Left for later slices: `supervised_augment` (non-SSL training), the other
 algorithms, mid-epoch checkpoints, the val video panels, multi-process DDP.
 """
@@ -123,13 +130,26 @@ class Trainer:
         sampled = sample_ssl_batch(gen, B, V, H, W, batch.get("dims"), self.aug)
         return ssl_batch_augment(dev_batch["videos"], sampled, self.aug)
 
-    def train_step(self, batch, dev_batch, epoch: int, it: int, lr: float):
+    def backbone_warmup_active(self, epoch: int) -> bool:
+        """TRAIN.BACKBONE_WARMUP: epochs before it keep the backbone out of
+        the gradient (`train.py:81-85`); it needs smart fusion."""
+        warmup = self.cfg.TRAIN.BACKBONE_WARMUP
+        if warmup is None:
+            return False
+        if self.cfg.MODEL.EMBEDDER_MODEL.FUSION_TYPE != "smart":
+            raise ValueError("BACKBONE_WARMUP requires smart fusion "
+                             "(`train.py:81-85`)")
+        return epoch < warmup
+
+    def train_step(self, batch, dev_batch, epoch: int, it: int, lr: float,
+                   warmup_active: bool = False):
         """One optimizer step; returns the loss as a device scalar with NaN
         zeroed."""
         self.model.train()
         videos = self.augment(batch, dev_batch, TRAIN_STREAM, epoch, it)
         torch.manual_seed(step_seed(self.cfg.RNG_SEED, DROPOUT_STREAM, epoch, it))
-        loss = self.algo.compute_loss(self.model, dict(dev_batch, videos=videos))["loss"]
+        loss = self.algo.compute_loss(self.model, dict(dev_batch, videos=videos),
+                                      backbone_warmup_active=warmup_active)["loss"]
         self.optimizer.zero_grad()
         loss.backward()
         self.optimizer.step(lr)
@@ -140,6 +160,7 @@ class Trainer:
 
     def train_one_epoch(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg
+        warmup_active = self.backbone_warmup_active(epoch)
         self.train_loader.set_epoch(epoch)
         lr = learning_rate_for_epoch(cfg, epoch)
         data_size = len(self.train_loader)
@@ -154,7 +175,8 @@ class Trainer:
             dev_batch = self.device_batch(batch)
             tmt[1] += time.time() - t1
             t1 = time.time()
-            losses.append(self.train_step(batch, dev_batch, epoch, cur_iter, lr))
+            losses.append(self.train_step(batch, dev_batch, epoch, cur_iter, lr,
+                                          warmup_active))
             tmt[2] += time.time() - t1
             t1 = time.time()
             if cur_iter % cfg.LOGGING.REPORT_INTERVAL == 0:
