@@ -20,8 +20,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      0.1 and 2.0, a padded canvas, fp32 and bf16 output;
    - the ViT kernels (LayerNorm, LN + matmul + bias + activation with each
      activation and with the residual epilogue, packed attention, the
-     attention half-block) in fp32 and bf16 at the MV-Former chunk
-     (40 x 785 x 768) and a ragged last chunk (7 frames);
+     attention half-block, matmul + GELU, the LN-MLP half-block) in fp32
+     and bf16 at the MV-Former chunk (40 x 785 x 768) and a ragged last
+     chunk (7 frames);
 4. eval path: `python -m video_rep_learning_tpu_torch.evaluate`'s function on
    a synthetic Pouring set with a full-width CARL model (seeded weights) and
    the kendalls_tau + retrieval tasks; checks launches, finiteness, unit
@@ -51,7 +52,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    step and clips/s, and profiles one warm step;
 10. one step of k400_mvf.yml's model and loss (3 taps, batch_noself, 2 x 2
    x 80 frames) under VRL_FUSED_SCL=1 and 0: loss and head gradients agree;
-11. card vs CPU: one fp32 MV-Former training step, 8 frames a view.
+11. card vs CPU: one fp32 MV-Former training step, 8 frames a view;
+12. the partially frozen ViT (pouring_mvf.yml with MODEL.BASE_MODEL.LAYER 10
+   and MODEL.REMAT True: blocks 10-11 and the final norm train on all 480
+   frames of a step): training through the CLI warm-started from the
+   seeded fully frozen checkpoint, two epochs with a resume under
+   VRL_FUSED_MLP=1 (#9); which tensors moved (every `backbone.*`
+   bit-identical); one warm step under each MLP route of the JAX gates
+   (#9, the default #6, VRL_FUSED_LN_MM=0's #8 + #7) with its exact ViT
+   launches and peak memory; warm ms per step, clips/s and a profiled step;
+13. card vs CPU: one fp32 partial-ViT training step, 8 frames a view,
+   under the default gates and under VRL_FUSED_MLP=1, every `res_finetune`
+   gradient tensor held.
+Phase 3 also holds #7 (matmul + GELU) and #9 (the LN-MLP half-block)
+against their plain versions, times #9 at 480 frames too, and checks the
+six ViT kernels' gradients (the kernel forward, the plain backward chunked
+over frames) against autograd of the plain versions on the card.
 
 The last two lines of stdout are a JSON object with one entry per kernel,
 then `{"ok": true, "device": {...}}`. Work files go to `build/chip_smoke/`.
@@ -65,6 +81,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -122,9 +139,21 @@ STEP_TOL = {"frames": 1e-4, "loss": 1e-4, "grads": 2e-3, "layer4_fp64": 1e-8}
 # version (two ulps); the half-block composes three rounded stages, the
 # last one (proj + residual) rounding once from fp32 (two)
 VIT_FP32_TOL = {"layernorm": 1e-5, "ln_gemm": 1e-4, "packed_attn": 1e-5,
-                "vit_attention_block": 1e-4}
+                "vit_attention_block": 1e-4, "matmul_bias_gelu": 1e-4,
+                "ln_mlp_block": 1e-4}
+# #9 rounds its activation before fc2 on both sides; one ulp apart there
+# moves fc2's sum by far less than an output ulp, which then rounds once
+# more: two ulps
 VIT_BF16_ULPS = {"layernorm": 1, "ln_gemm": 1, "packed_attn": 2,
-                 "vit_attention_block": 2}
+                 "vit_attention_block": 2, "matmul_bias_gelu": 1, "ln_mlp_block": 2}
+# the ViT kernels' gradients (the kernel forward, the plain backward chunked
+# over frames) against autograd of the plain version over all frames, each
+# tensor relative to its largest value: fp32 the same math summed in
+# another order; bf16: the chunked weight gradients round to bf16 once a
+# chunk, the whole one once, and cuBLAS may sum a chunk's bf16 products in
+# another order than the whole's: two bf16 ulps (2^-6)
+VIT_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+VIT_GRAD_FRAMES, VIT_GRAD_CHUNK = 3, 2
 VIT_SHAPES = [(40, 785, 768), (7, 785, 768)]  # a chunk, a ragged last chunk
 MVF_CARD_VS_CPU = 16  # frames; fp32, TF32 off, 12 blocks: tol CARD_VS_CPU_TOL
 K400_MVF_CFG_FILE = os.path.join(REPO, "configs_mvf", "k400_mvf.yml")
@@ -156,6 +185,22 @@ MVF_GRAD_GROUPS = (("LSTP", ("embed.pooling.",)),
 
 def log(msg):
     print(msg, flush=True)
+
+
+@contextmanager
+def env_vars(**values):
+    """Set environment variables (the JAX package's VRL_* gates) for the
+    block, then restore them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def cuda_ms(fn, reps=50, warmup=5):
@@ -274,12 +319,13 @@ def phase_kernel_vs_plain(main_lens):
     return main_err
 
 
-def timed(kern, plain, library=None):
+def timed(kern, plain, library=None, reps=20):
     """Kernel, plain and library times in turns (plain, kernel, kernel, plain,
     then the library call twice), each the mean of its two runs."""
-    p1, k1, k2, p2 = (cuda_ms(f, reps=20) for f in (plain, kern, kern, plain))
-    lib = None if library is None else (cuda_ms(library, reps=20)
-                                        + cuda_ms(library, reps=20)) / 2
+    p1, k1, k2, p2 = (cuda_ms(f, reps=reps, warmup=min(5, reps))
+                      for f in (plain, kern, kern, plain))
+    lib = None if library is None else (cuda_ms(library, reps=reps, warmup=min(5, reps))
+                                        + cuda_ms(library, reps=reps, warmup=min(5, reps))) / 2
     return (k1 + k2) / 2, (p1 + p2) / 2, lib
 
 
@@ -457,10 +503,12 @@ def phase_augment():
 
 
 def phase_vit_kernels():
-    """The four ViT kernels against their plain versions in fp32 and bf16 at
-    the MV-Former chunk and a ragged last chunk; then each timed in bf16 (the
-    path's type under USE_AMP) at the chunk, beside its plain version, a
-    library composition of the same function and its bound."""
+    """The six ViT kernels (#8, #6, #4, #5, #7, #9) against their plain
+    versions in fp32 and bf16 at the MV-Former chunk and a ragged last chunk,
+    with each activation; then each timed in bf16 (the path's type under
+    USE_AMP) at the chunk, beside its plain version, a library composition
+    of the same function and its bound, and #9 again at the trainable
+    tail's 480 frames."""
     import torch.nn.functional as F
 
     from video_rep_learning_tpu_torch.ops import bounds
@@ -469,7 +517,8 @@ def phase_vit_kernels():
     from video_rep_learning_tpu_torch.ops.layernorm import (fused_layernorm,
                                                             layernorm_reference)
     from video_rep_learning_tpu_torch.ops.matmul import (
-        ln_matmul_bias_act, ln_matmul_bias_act_reference)
+        ln_matmul_bias_act, ln_matmul_bias_act_reference, ln_mlp_block,
+        ln_mlp_block_reference, matmul_bias_gelu, matmul_bias_gelu_reference)
     from video_rep_learning_tpu_torch.ops.vit_block import (
         vit_attention_block, vit_attention_block_reference)
 
@@ -483,9 +532,13 @@ def phase_vit_kernels():
             qkv=r(n, N, 3 * D).to("cuda", dtype),
             ln_s=(1 + 0.1 * r(D)).cuda(), ln_b=(0.1 * r(D)).cuda(),
             w1=(r(4 * D, D) * D ** -0.5).to("cuda", dtype), b1=(0.1 * r(4 * D)).cuda(),
+            w2=(r(D, 4 * D) * (4 * D) ** -0.5).to("cuda", dtype), b2=(0.1 * r(D)).cuda(),
             wqkv=(r(3 * D, D) * D ** -0.5).to("cuda", dtype),
             bqkv=(0.1 * r(3 * D)).cuda(),
             wp=(r(D, D) * D ** -0.5).to("cuda", dtype), bp=(0.1 * r(D)).cuda())
+
+    def mlp_args(a):
+        return a["x"], a["ln_s"], a["ln_b"], a["w1"], a["b1"], a["w2"], a["b2"]
 
     def cases(a, heads):
         """name -> [(what, kernel call, plain call)]."""
@@ -510,6 +563,17 @@ def phase_vit_kernels():
                 a["bp"], heads), lambda: vit_attention_block_reference(
                 a["x"], a["ln_s"], a["ln_b"], a["wqkv"], a["bqkv"], a["wp"],
                 a["bp"], heads))],
+            "matmul_bias_gelu": [(f"fc1 + {act}",
+                                  lambda approx=approx: matmul_bias_gelu(
+                                      a["x"], a["w1"], a["b1"], approx),
+                                  lambda approx=approx: matmul_bias_gelu_reference(
+                                      a["x"], a["w1"], a["b1"], approx))
+                                 for act, approx in (("gelu_exact", False),
+                                                     ("gelu_tanh", True))],
+            "ln_mlp_block": [(f"LN2 + fc1 + {act} + fc2 + residual",
+                              lambda act=act: ln_mlp_block(*mlp_args(a), act),
+                              lambda act=act: ln_mlp_block_reference(*mlp_args(a), act))
+                             for act in ("gelu_exact", "gelu_tanh")],
         }
 
     max_err = {}
@@ -541,7 +605,7 @@ def phase_vit_kernels():
     n, N, D = VIT_SHAPES[0]
     heads, rows = D // 64, n * N
     a = inputs(VIT_SHAPES[0], torch.bfloat16)
-    lib = {k: a[k].bfloat16() for k in ("ln_s", "ln_b", "b1", "bqkv", "bp")}
+    lib = {k: a[k].bfloat16() for k in ("ln_s", "ln_b", "b1", "b2", "bqkv", "bp")}
     split = a["qkv"].view(n, N, 3, heads, 64).permute(2, 0, 3, 1, 4).contiguous()
 
     def library_block():
@@ -550,6 +614,11 @@ def phase_vit_kernels():
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(n, N, D)
         return a["x"] + F.linear(o, a["wp"], lib["bp"])
+
+    def library_mlp(x):
+        h = F.gelu(F.linear(F.layer_norm(x, (D,), lib["ln_s"], lib["ln_b"], 1e-6),
+                            a["w1"], lib["b1"]))
+        return x + F.linear(h, a["w2"], lib["b2"])
 
     timing = {
         "layernorm": (cases(a, heads)["layernorm"][0][1:],
@@ -568,6 +637,15 @@ def phase_vit_kernels():
                                 library_block,
                                 "layer_norm + linear + SDPA + linear + add",
                                 bounds.vit_attention_block(n, N, D, heads, 2)),
+        "matmul_bias_gelu": (cases(a, heads)["matmul_bias_gelu"][0][1:],
+                             lambda: F.gelu(F.linear(a["x"], a["w1"], lib["b1"])),
+                             "linear + gelu, fc1 + exact GELU",
+                             bounds.ln_matmul(rows, D, 4 * D, 2, ln=False,
+                                              activation="gelu_exact")),
+        "ln_mlp_block": (cases(a, heads)["ln_mlp_block"][0][1:],
+                         lambda: library_mlp(a["x"]),
+                         "layer_norm + linear + gelu + linear + add",
+                         bounds.mlp_block(rows, D, 4 * D, 2)),
     }
     entries = {}
     for name, ((kern, plain), library, lib_what, work) in timing.items():
@@ -578,7 +656,86 @@ def phase_vit_kernels():
         log(f"time {name} {VIT_SHAPES[0]} bf16: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
             f"({lib_what}) {lib_ms:.4f} ms")
+
+    # #9 at the partially frozen ViT's trainable tail: every frame of a step
+    # (1 clip x 2 views x 240) at once
+    frames = 2 * 240
+    gc = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    big = dict(a, x=(torch.randn(frames, N, D, generator=gc, device="cuda") * 2
+                     + 0.5).bfloat16())
+    ms, plain_ms, lib_ms = timed(lambda: ln_mlp_block(*mlp_args(big)),
+                                 lambda: ln_mlp_block_reference(*mlp_args(big)),
+                                 lambda: library_mlp(big["x"]), reps=3)
+    b_ms, b_by = bounds.bound(*bounds.mlp_block(frames * N, D, 4 * D, 2))
+    entries["ln_mlp_block"].update(ms_480=ms, plain_ms_480=plain_ms,
+                                   bound_ms_480=b_ms, library_ms_480=lib_ms)
+    log(f"time ln_mlp_block ({frames}, {N}, {D}) bf16: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library {lib_ms:.4f} ms")
     return entries
+
+
+def phase_vit_grads():
+    """The six ViT kernels' wrappers differentiated on the card (the kernel
+    forward, autograd of the plain version chunked over frames backward)
+    against autograd of the plain version over all frames, at full width,
+    VIT_GRAD_FRAMES frames in chunks of VIT_GRAD_CHUNK, fp32 and bf16: each
+    input's gradient relative to its largest value; each forward launched
+    its kernel."""
+    from video_rep_learning_tpu_torch.ops import attention, layernorm, matmul, vit_block
+
+    g = torch.Generator().manual_seed(SEED + 5)
+    n, N, D = VIT_GRAD_FRAMES, 785, 768
+    heads, ch = D // 64, VIT_GRAD_CHUNK
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (r(n, N, D) * 2 + 0.5).to("cuda", dtype)
+        vec = lambda k, s=0.1, m=0.0: (m + s * r(k)).cuda()  # noqa: E731
+        mat = lambda o, i: (r(o, i) * i ** -0.5).to("cuda", dtype)  # noqa: E731
+        ln = (vec(D, m=1.0), vec(D))
+        cases = {  # name: (wrapper, plain, args, launch counter)
+            "layernorm": (layernorm.fused_layernorm, layernorm.layernorm_reference,
+                          (x, *ln), layernorm.fused_layernorm),
+            "ln_gemm": (matmul.ln_matmul_bias_act, matmul.ln_matmul_bias_act_reference,
+                        (x, *ln, mat(4 * D, D), vec(4 * D), "gelu_exact"),
+                        matmul.ln_matmul_bias_act),
+            "packed_attn": (attention.packed_vit_attention,
+                            attention.packed_attention_reference,
+                            (r(n, N, 3 * D).to("cuda", dtype), heads),
+                            attention.packed_vit_attention),
+            "vit_attention_block": (
+                vit_block.vit_attention_block, vit_block.vit_attention_block_reference,
+                (x, *ln, mat(3 * D, D), vec(3 * D), mat(D, D), vec(D), heads),
+                vit_block.vit_attention_block),
+            "matmul_bias_gelu": (matmul.matmul_bias_gelu,
+                                 matmul.matmul_bias_gelu_reference,
+                                 (x, mat(4 * D, D), vec(4 * D), False),
+                                 matmul.matmul_bias_gelu),
+            "ln_mlp_block": (matmul.ln_mlp_block, matmul.ln_mlp_block_reference,
+                             (x, *ln, mat(4 * D, D), vec(4 * D), mat(D, 4 * D), vec(D),
+                              "gelu_exact"), matmul.ln_mlp_block),
+        }
+        for name, (fn, plain, args, counter) in cases.items():
+            grads = {}
+            for how in ("kernel", "plain"):
+                leaves = [a.detach().clone().requires_grad_()
+                          if isinstance(a, torch.Tensor) else a for a in args]
+                before = counter.launches
+                y = (fn(*leaves, grad_chunk=ch) if how == "kernel" else plain(*leaves))
+                launched = counter.launches - before
+                ct = torch.randn(y.shape, generator=torch.Generator().manual_seed(1))
+                (y.float() * ct.cuda()).sum().backward()
+                torch.cuda.synchronize()
+                grads[how] = [a.grad for a in leaves if isinstance(a, torch.Tensor)]
+                if how == "kernel" and launched != 1:
+                    raise AssertionError(f"{name}: the forward launched {launched} times")
+            errs = [_rel(k.float(), p.float()) for k, p in zip(*grads.values())]
+            ok = (max(errs) <= VIT_GRAD_TOL[dtype]
+                  and all(k.dtype == p.dtype for k, p in zip(*grads.values())))
+            log(f"gradient {name} {str(dtype)[6:]:8s} ({n}, {N}, {D}), chunks of {ch}: "
+                f"worst input {max(errs):.2e} of its largest (tol "
+                f"{VIT_GRAD_TOL[dtype]:.1e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}'s gradient disagrees on the card")
 
 
 class EmbeddingCheck:
@@ -712,6 +869,8 @@ def _launch_counters():
             "photometric": photometric.photometric,
             "layernorm": layernorm.fused_layernorm,
             "ln_gemm": matmul.ln_matmul_bias_act,
+            "matmul_bias_gelu": matmul.matmul_bias_gelu,
+            "ln_mlp_block": matmul.ln_mlp_block,
             "packed_attn": attention.packed_vit_attention,
             "vit_attention_block": vit_block.vit_attention_block,
             "scl_rowsum": scl.scl_rowsum, "scl_loss_rows": scl.scl_loss_rows,
@@ -915,14 +1074,15 @@ def differing_frames(shape, seed):
     return np.clip(base + amp * noise, 0, 255).astype(np.uint8)
 
 
-def fp32_step_card_and_cpu(cfg_file, data_root, frames, seed, hook=None):
+def fp32_step_card_and_cpu(cfg_file, data_root, frames, seed, hook=None, opts=()):
     """One fp32 training step (USE_AMP False, TF32 off, dropout off) of
     `cfg_file`'s model at full width on the card and on the CPU, `frames` a
     view: the same initial weights, the loader's masks, lengths and steps
     with frames that differ in colour and contrast in place of the synthetic
     set's (mostly a flat background), and the same augmentation values
     sampled once on the host with jitter and blur on (the whole chain runs).
-    `hook(model)` may register hooks and returns a remover. Returns
+    `hook(model)` may register hooks and returns a remover; `opts` are more
+    config options. Returns
     (cfg, B, V, {device: (augmented frames, loss, head gradients)})."""
     from video_rep_learning_tpu_torch import evaluate as cli
     from video_rep_learning_tpu_torch.algos import SCL
@@ -935,7 +1095,7 @@ def fp32_step_card_and_cpu(cfg_file, data_root, frames, seed, hook=None):
     cfg = cli.load_config(cli.parse_cli(
         ["--cfg_file", cfg_file, "--opts", "USE_AMP", "False", "TRAIN.NUM_FRAMES",
          str(frames), "DATA.NUM_WORKERS", "0", "MODEL.EMBEDDER_MODEL.FC_DROPOUT_RATE",
-         "0.0"])[0])
+         "0.0", *opts])[0])
     cfg.PATH_TO_DATASET = os.path.join(data_root, "pouring")
     loader, _ = construct_dataloader(cfg, "train")
     batch = next(iter(loader))
@@ -1319,15 +1479,8 @@ def phase_mvf_train_path(data_root, card):
     started from a seeded checkpoint: one epoch over the 6 train videos with
     a checkpoint, then `--continue_train` for a second; then warm steps and
     a profiled one, under the same flag."""
-    saved = os.environ.get("VRL_FUSED_SCL")
-    os.environ["VRL_FUSED_SCL"] = "1"
-    try:
+    with env_vars(VRL_FUSED_SCL="1"):
         return _mvf_train_path(data_root, card)
-    finally:
-        if saved is None:
-            os.environ.pop("VRL_FUSED_SCL", None)
-        else:
-            os.environ["VRL_FUSED_SCL"] = saved
 
 
 def _mvf_train_path(data_root, card):
@@ -1439,10 +1592,8 @@ def phase_mvf_fused_vs_plain(data_root):
     videos = trainer.augment(batch, dev, 0, 0, 0)
     B, V, T = dev["video_masks"].shape
     out = {}
-    saved = os.environ.get("VRL_FUSED_SCL")
-    try:
-        for flag in ("1", "0"):
-            os.environ["VRL_FUSED_SCL"] = flag
+    for flag in ("1", "0"):
+        with env_vars(VRL_FUSED_SCL=flag):
             trainer.model.train()
             trainer.optimizer.zero_grad()
             _reset_launches()
@@ -1453,11 +1604,6 @@ def phase_mvf_fused_vs_plain(data_root):
             torch.cuda.synchronize()
             scl_launches = {k: v for k, v in _read_launches().items() if k in SCL_PASSES}
             out[flag] = (loss.item(), _head_grads(trainer.model), scl_launches)
-    finally:
-        if saved is None:
-            os.environ.pop("VRL_FUSED_SCL", None)
-        else:
-            os.environ["VRL_FUSED_SCL"] = saved
     (lf, gf, nf), (lp, gp, np_) = out["1"], out["0"]
     l_err = abs(lf - lp) / abs(lp)
     # a tensor whose gradient is 0 in exact arithmetic (the attention key
@@ -1496,30 +1642,193 @@ def phase_mvf_step_card_vs_cpu(data_root):
         raise AssertionError("the card's fp32 MV-Former step disagrees with the CPU's")
 
 
-def time_unported_library(n=40, N=785, D=768):
-    """Rows #7 and #9, still to port: the time of the PyTorch calls that
-    compute their functions at the MV-Former chunk in bf16, for PERF.md's
-    table. Used nowhere in the port."""
-    import torch.nn.functional as F
+# the partially frozen ViT: configs_mvf/pouring_mvf.yml with blocks 0-9
+# frozen, blocks 10-11 and the final norm trained, under MODEL.REMAT
+PARTIAL_FRONT = 10
+PARTIAL_OPTS = ["MODEL.BASE_MODEL.LAYER", str(PARTIAL_FRONT), "MODEL.REMAT", "True"]
+# the MLP half-block's extra launches a block on each route of the JAX gates
+# (models/vit.py::mlp_route): (ln_gemm, ln_mlp_block, matmul_bias_gelu,
+# layernorm); every block also makes one #5 = one #4 + two ln_gemm
+MLP_ROUTES = {"fused_mlp": (0, 1, 0, 0), "ln_mm": (1, 0, 0, 0), "mm": (0, 0, 1, 1)}
 
-    g = torch.Generator().manual_seed(SEED + 4)
-    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
-    x = (r(n, N, D) * 2 + 0.5).to("cuda", torch.bfloat16)
-    w1 = (r(4 * D, D) * D ** -0.5).to("cuda", torch.bfloat16)
-    w2 = (r(D, 4 * D) * (4 * D) ** -0.5).to("cuda", torch.bfloat16)
-    b1, b2, ln_s, ln_b = (t.to("cuda", torch.bfloat16) for t in (
-        0.1 * r(4 * D), 0.1 * r(D), 1 + 0.1 * r(D), 0.1 * r(D)))
-    t7 = (cuda_ms(lambda: F.gelu(F.linear(x, w1, b1)), reps=20)
-          + cuda_ms(lambda: F.gelu(F.linear(x, w1, b1)), reps=20)) / 2
 
-    def mlp():
-        h = F.gelu(F.linear(F.layer_norm(x, (D,), ln_s, ln_b, 1e-6), w1, b1))
-        return x + F.linear(h, w2, b2)
+def partial_step_launches(route, frames, chunk=40, depth=12, front=PARTIAL_FRONT,
+                          remat=True):
+    """The ViT kernels' launches of one training step of the partial ViT:
+    the front's blocks once per chunk of `chunk` frames, the back end's on
+    all the frames at once, once more under REMAT (the recompute), and its
+    final norm with each."""
+    back_runs = 2 if remat else 1
+    blocks = front * -(-frames // chunk) + (depth - front) * back_runs
+    gemm, mlp, mm, ln = MLP_ROUTES[route]
+    return {"vit_attention_block": blocks, "packed_attn": blocks,
+            "ln_gemm": (2 + gemm) * blocks, "ln_mlp_block": mlp * blocks,
+            "matmul_bias_gelu": mm * blocks, "layernorm": ln * blocks + back_runs}
 
-    t9 = (cuda_ms(mlp, reps=20) + cuda_ms(mlp, reps=20)) / 2
-    log(f"library time, row #7 (to port): linear + gelu ({n}, {N}, {D}) -> {4 * D} "
-        f"bf16 {t7:.4f} ms; row #9 (to port): layer_norm + linear + gelu + linear "
-        f"+ add ({n}, {N}, {D}), F {4 * D}, bf16 {t9:.4f} ms")
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_partial_train_path(data_root, card):
+    """`python -m video_rep_learning_tpu_torch.train` on pouring_mvf.yml with
+    MODEL.BASE_MODEL.LAYER 10 and MODEL.REMAT True at full width, warm
+    started from the seeded fully frozen checkpoint: under VRL_FUSED_MLP=1
+    one epoch with a checkpoint, then `--continue_train` for a second; then
+    one warm step under each MLP route of the JAX gates (#9, the default #6,
+    VRL_FUSED_LN_MM=0's #8 + #7) with its launches and peak memory; then
+    warm steps and a profiled one under VRL_FUSED_MLP=1. Returns the
+    launches summed over the phase."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.evaluation import TASK_REGISTRY
+    from video_rep_learning_tpu_torch.models.weights import split_vit_state
+    from video_rep_learning_tpu_torch.train.cli import main as train_main
+
+    logdir = os.path.join(WORK, "partial_train_logs")
+    cfg = cli.load_config(cli.parse_cli(["--cfg_file", MVF_CFG_FILE])[0])
+    seed_path, seed_state = seeded_mvf_checkpoint(cfg)
+    seed_state = split_vit_state(seed_state, PARTIAL_FRONT)
+
+    def argv(epochs, *flags):
+        return ["--workdir", data_root, "--logdir", logdir, "--cfg_file",
+                MVF_CFG_FILE, "--device", "cuda", *flags, "--opts", *smoke_opts(
+                    ["TRAIN.MAX_EPOCHS", str(epochs), "LOGGING.REPORT_INTERVAL",
+                     "3", "RNG_SEED", str(SEED), "MODEL.PRETRAINED_CHECKPOINT",
+                     seed_path, *PARTIAL_OPTS])]
+
+    TASK_REGISTRY["embedding_check"] = EmbeddingCheck
+    EmbeddingCheck.seen = []
+    total = {}
+    with env_vars(VRL_FUSED_MLP="1"):
+        _reset_launches()
+        t0 = time.time()
+        train_main(argv(1))
+        torch.cuda.synchronize()
+        log(f"partial-ViT train path (LAYER {PARTIAL_FRONT}, REMAT, VRL_FUSED_MLP=1): "
+            f"epoch 0 in {time.time() - t0:.2f} s cold (build, warm start from the "
+            f"fully frozen checkpoint, loaders, 6 steps, checkpoint, val loss, "
+            f"evaluation)")
+        ckpts = sorted(os.listdir(os.path.join(logdir, "checkpoints")))
+        if ckpts != ["checkpoint_epoch_00000.pth"]:
+            raise AssertionError(f"expected one epoch-0 checkpoint, found {ckpts}")
+        t0 = time.time()
+        trainer = train_main(argv(2, "--continue_train", "--tempcfg"))
+        torch.cuda.synchronize()
+        launches = _read_launches()
+    _add(total, launches)
+    steps = 2 * len(trainer.train_loader)
+    log(f"partial-ViT train path: resumed at epoch {trainer.start_epoch}, epoch 1 "
+        f"in {time.time() - t0:.2f} s; {steps} training steps; launches on the "
+        f"path {json.dumps(launches)}")
+    if trainer.start_epoch != 1:
+        raise AssertionError("the second run did not resume from epoch 0")
+    blocks = launches["vit_attention_block"]
+    if (blocks <= 0 or launches["packed_attn"] != blocks
+            or launches["ln_gemm"] != 2 * blocks or launches["ln_mlp_block"] != blocks
+            or launches["matmul_bias_gelu"] or launches["layernorm"] <= 0):
+        raise AssertionError(f"ViT launches do not follow #9's route: {launches}")
+    for name in ("crop_photometric", "flash_attn_fwd", "flash_attn_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the partial-ViT path never launched {name}")
+    if len(EmbeddingCheck.seen) != 4:
+        raise AssertionError("the embedding check did not run after each epoch")
+
+    # the back end and the head moved, the front is bit-identical. The final
+    # norm only feeds the CLS feature, which pouring_mvf's head never reads:
+    # its bias has no gradient and no weight decay to move it
+    trainable = {n for n, p in trainer.model.named_parameters() if p.requires_grad}
+    still = {"res_finetune.norm.bias"}
+    moved, front, front_moved = set(), 0, 0
+    for n, v in trainer.model.state_dict().items():
+        same = torch.equal(v.cpu(), seed_state[n])
+        if n in trainable and not same:
+            moved.add(n)
+        elif n.startswith("backbone."):
+            front += 1
+            front_moved += not same
+    back = sorted(n for n in trainable if n.startswith("res_finetune."))
+    log(f"partial-ViT train path: {len(moved)} of {len(trainable)} trainable tensors "
+        f"moved ({len(back)} res_finetune.*, blocks "
+        f"{sorted({n.split('.')[2] for n in back if '.blocks.' in n})}; unmoved "
+        f"{sorted(trainable - moved)}), {front_moved} of {front} backbone.* tensors "
+        f"moved")
+    if (trainable - moved != still or front_moved or not front
+            or any(n.startswith("backbone.") for n in trainable)
+            or not any(n.startswith("res_finetune.blocks.11.") for n in moved)):
+        raise AssertionError("the wrong partial-ViT parameters moved")
+
+    # one warm step on each MLP route: launches, time, peak memory
+    batch = next(iter(trainer.train_loader))
+    frames = batch["videos"].shape[0] * batch["videos"].shape[1] * trainer.cfg.TRAIN.NUM_FRAMES
+    for i, (route, env) in enumerate((("fused_mlp", {"VRL_FUSED_MLP": "1"}),
+                                      ("ln_mm", {}), ("mm", {"VRL_FUSED_LN_MM": "0"}))):
+        with env_vars(**env):
+            dev = trainer.device_batch(batch)
+            torch.cuda.synchronize()
+            _reset_launches()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            loss = float(trainer.train_step(batch, dev, 9, 100 + i, 1e-4))
+            torch.cuda.synchronize()
+            ms = (time.time() - t0) * 1e3
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            counts = _read_launches()
+        _add(total, counts)
+        want = partial_step_launches(route, frames)
+        got = {k: counts[k] for k in want}
+        ok = got == want and np.isfinite(loss)
+        log(f"partial-ViT step, MLP route {route} ({' '.join(f'{k}={v}' for k, v in env.items()) or 'default gates'}): "
+            f"{ms:.1f} ms, peak device memory {peak:.2f} GiB above the "
+            f"{base / 2 ** 30:.2f} GiB held, loss {loss:.6f}; ViT launches {json.dumps(got)} "
+            f"(expected {json.dumps(want)}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the {route} route's step launched the wrong kernels")
+
+    with env_vars(VRL_FUSED_MLP="1"):
+        _reset_launches()
+        batch, step_ms, losses = warm_steps(trainer, 3)
+        clips = batch["videos"].shape[0]
+        log(f"partial-ViT train step (warm, bf16 ViT-B/8 frozen to block "
+            f"{PARTIAL_FRONT}, blocks 10-11 + norm trained under REMAT, VRL_FUSED_MLP=1, "
+            f"{clips} clip x 2 views x {trainer.cfg.TRAIN.NUM_FRAMES} frames of 256x256 "
+            f"uint8 -> 224 px): {step_ms:.1f} ms/step, {clips / step_ms * 1e3:.3f} "
+            f"clips/s on {card}; losses {losses}")
+        own = dict(OWN_KERNELS, mlp_bf16_kernel="ln_mlp_block (#9)",
+                   dkdv_kernel="flash_attn_bwd dk/dv", dq_kernel="flash_attn_bwd dq",
+                   photometric_kernel="crop_photometric")
+        profile_train_step(trainer, batch, "partial ViT", "partial_train_step_trace.json",
+                           own)
+        _add(total, _read_launches())
+    return total
+
+
+def phase_partial_step_card_vs_cpu(data_root):
+    """One fp32 training step of the partial ViT (LAYER 10, REMAT) on the
+    card and on the CPU (`fp32_step_card_and_cpu`, MVF_STEP_FRAMES frames a
+    view), under the default gates and under VRL_FUSED_MLP=1: every head
+    gradient tensor and every `res_finetune` one held on STEP_TOL's rule."""
+    groups = MVF_GRAD_GROUPS + (("ViT back end", ("res_finetune.",)),)
+    for what, env in (("default gates", {}), ("VRL_FUSED_MLP=1", {"VRL_FUSED_MLP": "1"})):
+        with env_vars(**env):
+            _reset_launches()
+            _, B, V, out = fp32_step_card_and_cpu(MVF_CFG_FILE, data_root,
+                                                  MVF_STEP_FRAMES, SEED + 2,
+                                                  opts=PARTIAL_OPTS)
+            launches = _read_launches()
+        ok, names = check_step(
+            f"one fp32 partial-ViT training step ({B} clip x {V} views x "
+            f"{MVF_STEP_FRAMES} frames that differ, ViT-B/8 frozen to block "
+            f"{PARTIAL_FRONT}, REMAT, {what})", out, groups)
+        ok &= len(names["ViT back end"]) > 0 and (
+            launches["ln_mlp_block"] > 0 if env else launches["ln_gemm"] > 0)
+        log(f"card vs CPU partial-ViT training step, {what}: "
+            f"{len(names['ViT back end'])} res_finetune gradient tensors; ln_mlp_block "
+            f"launches {launches['ln_mlp_block']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the card's fp32 partial-ViT step disagrees with "
+                                 f"the CPU's ({what})")
 
 
 SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
@@ -1529,6 +1838,8 @@ SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
     "photometric": ("csrc/photometric.cu", "photometric_pallas.py:208"),
     "layernorm": ("csrc/layernorm.cu", "layernorm_pallas.py:36"),
     "ln_gemm": ("csrc/ln_gemm.cu", "matmul_gelu_pallas.py:198"),
+    "matmul_bias_gelu": ("csrc/ln_gemm.cu", "matmul_gelu_pallas.py:72"),
+    "ln_mlp_block": ("csrc/mlp_block.cu", "matmul_gelu_pallas.py:341"),
     "packed_attn": ("csrc/packed_attn.cu", "attention_pallas.py:485"),
     # three launches of csrc/ln_gemm.cu and csrc/packed_attn.cu
     "vit_attention_block": ("ops/vit_block.py", "vit_block_pallas.py:102"),
@@ -1551,7 +1862,7 @@ def main():
     entries["flash_attn_fwd"]["max_abs_err"] = fwd_err
     entries.update(phase_augment())
     entries.update(phase_vit_kernels())
-    time_unported_library()
+    phase_vit_grads()
     entries.update(phase_scl_kernels())
     eval_launches = phase_main_path(data_root, card)
     phase_card_vs_cpu(data_root, os.path.join(WORK, "logs"))
@@ -1568,9 +1879,17 @@ def main():
     phase_mvf_fused_vs_plain(data_root)
     torch.cuda.empty_cache()
     phase_mvf_step_card_vs_cpu(data_root)
+    torch.cuda.empty_cache()
+    partial_launches = phase_partial_train_path(data_root, card)
+    torch.cuda.empty_cache()
+    phase_partial_step_card_vs_cpu(data_root)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        if name in VIT_KERNELS:
+        if name in ("matmul_bias_gelu", "ln_mlp_block"):
+            path = ("partial-ViT training (2 epochs under VRL_FUSED_MLP=1, a step on "
+                    "each MLP route, warm steps)")
+            launches = partial_launches[name]
+        elif name in VIT_KERNELS:
             path, launches = "MV-Former eval", mvf_launches[name]
         elif name in SCL_PASSES:
             path = "MV-Former training (2 epochs, VRL_FUSED_SCL=1)"
@@ -1588,9 +1907,11 @@ def main():
             "eval_launches": eval_launches if name == "flash_attn_fwd" else 0,
             "mvf_eval_launches": mvf_launches[name],
             "mvf_train_launches": mvf_train_launches[name],
+            "partial_train_launches": partial_launches.get(name, 0),
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-            "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
+            "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+            **{k: v for k, v in e.items() if k.endswith("_480")}})
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

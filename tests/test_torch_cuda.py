@@ -1,8 +1,12 @@
 """The hand-written CUDA kernels (flash-attention forward and backward, the
 SSL crop+photometric and photometric kernels, the ViT's LayerNorm,
-LN + matmul, packed attention and attention half-block, and the four passes
-of the fused SCL loss) against their plain PyTorch versions, and the
-wrappers' refusal of what their kernels do not take. These need a CUDA card and skip elsewhere; on the GPU machine run
+LN + matmul, packed attention, attention half-block, matmul + GELU and the
+whole MLP half-block, and the four passes of the fused SCL loss) against
+their plain PyTorch versions; the ViT kernels' gradients (the kernel
+forward, the plain backward chunked over frames) against autograd of the
+plain versions; the JAX package's MLP gates reaching their kernels; and the
+wrappers' refusal of what their kernels do not take, and of a launch that
+would drop a gradient. These need a CUDA card and skip elsewhere; on the GPU machine run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -164,8 +168,9 @@ VIT_SHAPES = [(40, 785, 768), (7, 785, 768), (2, 17, 128)]
 # value); attention rounds p unnormalised in the kernel and normalised in
 # the plain version (two ulps); the half-block composes three rounded
 # stages, the last (proj + residual) rounding once from fp32 (two ulps)
-VIT_FP32_ATOL = {"ln": 1e-5, "mm": 1e-4, "attn": 1e-5, "block": 1e-4}
-VIT_BF16_ULPS = {"ln": 1, "mm": 1, "attn": 2, "block": 2}
+# (#9 rounds its activation before fc2 on both sides, then the output: two)
+VIT_FP32_ATOL = {"ln": 1e-5, "mm": 1e-4, "attn": 1e-5, "block": 1e-4, "mlp": 1e-4}
+VIT_BF16_ULPS = {"ln": 1, "mm": 1, "attn": 2, "block": 2, "mlp": 2}
 
 
 def _vit_tol(kind, dtype, want):
@@ -296,6 +301,138 @@ def test_vit_attention_block_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="w must be contiguous"):
         vit_block.vit_attention_block(x, ones, ones, wqkv.bfloat16(),
                                       torch.zeros(384, device=cuda), wp, ones, 2)
+
+
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", VIT_SHAPES, ids=str)
+def test_matmul_bias_gelu_matches_plain(cuda, shape, dtype, approximate):
+    x, _, _, w, b = _vit_inputs(cuda, shape, dtype, 8)
+    before = (matmul.matmul_bias_gelu.launches, matmul.ln_matmul_bias_act.launches)
+    got = matmul.matmul_bias_gelu(x, w, b, approximate)
+    torch.cuda.synchronize()
+    assert (matmul.matmul_bias_gelu.launches,
+            matmul.ln_matmul_bias_act.launches) == (before[0] + 1, before[1])
+    _assert_vit("mm", dtype, got, matmul.matmul_bias_gelu_reference(x, w, b, approximate))
+
+
+@pytest.mark.parametrize("activation", ["gelu_exact", "gelu_tanh"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", VIT_SHAPES, ids=str)
+def test_ln_mlp_block_matches_plain(cuda, shape, dtype, activation):
+    x, ln_s, ln_b, w1, b1 = _vit_inputs(cuda, shape, dtype, 9)
+    g = torch.Generator().manual_seed(10)
+    D = shape[-1]
+    w2 = (torch.randn(D, 4 * D, generator=g) * (4 * D) ** -0.5).to(cuda, dtype)
+    b2 = (0.1 * torch.randn(D, generator=g)).to(cuda)
+    before = matmul.ln_mlp_block.launches
+    got = matmul.ln_mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, activation)
+    torch.cuda.synchronize()
+    assert matmul.ln_mlp_block.launches == before + 1
+    _assert_vit("mlp", dtype, got, matmul.ln_mlp_block_reference(
+        x, ln_s, ln_b, w1, b1, w2, b2, activation))
+
+
+def test_ln_mlp_block_rejects_bad_input(cuda):
+    x = torch.randn(2, 8, 192, device=cuda)
+    ones = torch.ones(192, device=cuda)
+    w1, w2 = torch.randn(256, 192, device=cuda), torch.randn(192, 256, device=cuda)
+    b1 = torch.zeros(256, device=cuda)
+    with pytest.raises(ValueError, match="K % 128"):
+        matmul.ln_mlp_block(x, ones, ones, w1, b1, w2, ones)
+    x, ones = x[..., :128].contiguous(), ones[:128]
+    with pytest.raises(ValueError, match="w1 must be"):
+        matmul.ln_mlp_block(x, ones, ones, w1, b1, w2, ones)
+    w1, w2 = w1[:200, :128].contiguous(), w2[:128, :200].contiguous()
+    with pytest.raises(ValueError, match="F % 64"):
+        matmul.ln_mlp_block(x, ones, ones, w1, b1[:200], w2, ones)
+
+
+# the ViT kernels' gradients against autograd of the plain version over all
+# frames, each tensor relative to its largest value: fp32 the same math
+# summed in another order; bf16 the chunked weight gradients round to bf16
+# once a chunk (two ulps, 2^-6)
+VIT_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+
+def _grad_cases(cuda, dtype):
+    x, ln_s, ln_b, w1, b1 = _vit_inputs(cuda, (3, 17, 128), dtype, 11)
+    _, _, _, wqkv, bqkv = _vit_inputs(cuda, (3, 17, 128), dtype, 12, F=384)
+    _, _, _, wp, bp = _vit_inputs(cuda, (3, 17, 128), dtype, 13, F=128)
+    w2 = w1.t().contiguous()
+    qkv = torch.randn(3, 17, 384, generator=torch.Generator().manual_seed(14)).to(cuda, dtype)
+    return {
+        "layernorm": (layernorm.fused_layernorm, layernorm.layernorm_reference,
+                      (x, ln_s, ln_b)),
+        "ln_gemm": (matmul.ln_matmul_bias_act, matmul.ln_matmul_bias_act_reference,
+                    (x, ln_s, ln_b, w1, b1, "gelu_exact")),
+        "packed_attn": (attention.packed_vit_attention,
+                        attention.packed_attention_reference, (qkv, 2)),
+        "vit_attention_block": (vit_block.vit_attention_block,
+                                vit_block.vit_attention_block_reference,
+                                (x, ln_s, ln_b, wqkv, bqkv, wp, bp, 2)),
+        "matmul_bias_gelu": (matmul.matmul_bias_gelu, matmul.matmul_bias_gelu_reference,
+                             (x, w1, b1, True)),
+        "ln_mlp_block": (matmul.ln_mlp_block, matmul.ln_mlp_block_reference,
+                         (x, ln_s, ln_b, w1, b1, w2, bp, "gelu_exact")),
+    }
+
+
+@pytest.mark.parametrize("name", ["layernorm", "ln_gemm", "packed_attn",
+                                  "vit_attention_block", "matmul_bias_gelu",
+                                  "ln_mlp_block"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_vit_kernel_gradients_match_plain(cuda, name, dtype):
+    fn, plain, args = _grad_cases(cuda, dtype)[name]
+    grads = []
+    for f, kw in ((fn, {"grad_chunk": 2}), (plain, {})):
+        leaves = [a.detach().clone().requires_grad_() if isinstance(a, torch.Tensor)
+                  else a for a in args]
+        y = f(*leaves, **kw)
+        ct = torch.randn(y.shape, generator=torch.Generator().manual_seed(15)).to(cuda)
+        (y.float() * ct).sum().backward()
+        grads.append([a.grad for a in leaves if isinstance(a, torch.Tensor)])
+    torch.cuda.synchronize()
+    for k, p in zip(*grads):
+        assert k.dtype == p.dtype and k.shape == p.shape
+        err = (k.float() - p.float()).abs().max().item()
+        assert err <= VIT_GRAD_TOL[dtype] * p.float().abs().max().item(), (name, err)
+
+
+def test_launch_with_grad_outside_the_function_raises(cuda):
+    x, ln_s, ln_b, w, b = _vit_inputs(cuda, (2, 17, 128), torch.bfloat16, 16)
+    w.requires_grad_()
+    for call in (lambda: matmul._ln_matmul_bias_act(x, ln_s, ln_b, w, b, "none", None, 1e-6),
+                 lambda: matmul._matmul_bias_gelu(x, w, b, False)):
+        with pytest.raises(RuntimeError, match="records no gradient"):
+            call()
+    with torch.no_grad():
+        matmul._matmul_bias_gelu(x, w, b, False)  # no gradient asked for
+
+
+@pytest.mark.parametrize("gate", ["default", "fused_mlp", "ln_mm_off", "gelu_mm_off"])
+def test_mlp_gates_reach_their_kernels(cuda, monkeypatch, gate):
+    """A bf16 ViT block under each of the JAX package's MLP gates launches
+    the kernels of that route, forward and differentiated."""
+    from video_rep_learning_tpu_torch.models.vit import ViTBlock
+
+    env = {"fused_mlp": {"VRL_FUSED_MLP": "1"}, "ln_mm_off": {"VRL_FUSED_LN_MM": "0"},
+           "gelu_mm_off": {"VRL_FUSED_GELU_MM": "0"}}.get(gate, {})
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    # (ln_gemm, ln_mlp_block, matmul_bias_gelu, layernorm) a block
+    want = {"default": (3, 0, 0, 0), "fused_mlp": (2, 1, 0, 0),
+            "ln_mm_off": (2, 0, 1, 1), "gelu_mm_off": (2, 0, 0, 1)}[gate]
+    blk = ViTBlock(128, 2).to(cuda)
+    x = torch.randn(3, 17, 128, device=cuda).bfloat16()
+    counters = (matmul.ln_matmul_bias_act, matmul.ln_mlp_block,
+                matmul.matmul_bias_gelu, layernorm.fused_layernorm)
+    before = [c.launches for c in counters]
+    y = blk(x)  # grad on: the block's parameters require grad
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(c.launches - b for c, b in zip(counters, before)) == want
+    assert blk.mlp.fc1.weight.grad is not None and blk.attn.qkv.weight.grad is not None
 
 
 # the fused SCL passes, fp32 on both sides with TF32 off: the same per-pair

@@ -281,8 +281,10 @@ def test_mvf_backbone_flat_matches_jax(mvf_model):
 
 
 def test_unported_vit_wirings_raise(test_vit):
-    for opts, what in ((["MODEL.BASE_MODEL.LAYER", "1"], "partially frozen"),
-                       (["MODEL.EMBEDDER_MODEL.FUSION_TYPE", "late"], "late fusion"),
+    # a partially frozen ViT builds now (tests/test_torch_vit_partial.py)
+    partial = build_model(small_mvf_cfg(port_config, ["MODEL.BASE_MODEL.LAYER", "1"]))
+    assert isinstance(partial.res_finetune, port_vit.ViTBackEnd)
+    for opts, what in ((["MODEL.EMBEDDER_MODEL.FUSION_TYPE", "late"], "late fusion"),
                        (["MODEL.QUANTIZE_BACKBONE", "True"], "QUANTIZE_BACKBONE"),
                        (["MODEL.TRAIN_BASE", "train_all"], "train_all")):
         with pytest.raises(NotImplementedError, match=what):

@@ -3,7 +3,9 @@ none of flax and sklearn) and without the JAX package: in a subprocess that
 blocks all four, import the port and run a tiny CPU evaluation, from the
 `.npy` loaders through the model to the two scipy-only tasks, then two
 training steps, then an MV-Former evaluation (`configs_mvf/pouring_mvf.yml`
-with a small test ViT) and one MV-Former training step."""
+with a small test ViT), one MV-Former training step, and one step of the
+same model frozen up to block 1 of 2 under MODEL.REMAT (the back end
+trains, the front stays)."""
 
 import os
 import subprocess
@@ -94,10 +96,27 @@ SCRIPT = textwrap.dedent("""
     assert np.isfinite(mvf_loss), mvf_loss
     state = mvf_trainer.model.state_dict()
     assert all(torch.equal(state[n], t) for n, t in vit_before.items())
+
+    vit.VIT_SPECS["vit_test_64_d2"] = vit.ViTSpec(64, 2, 1, 8, img_size=32)
+    mvf.MODEL.BASE_MODEL.NETWORK = "TIMM-vit_test_64_d2"
+    mvf.MODEL.BASE_MODEL.LAYER = 1
+    mvf.MODEL.REMAT = True
+    mvf.MODEL.EMBEDDER_MODEL.SMART_FEATS = "1"
+    part = Trainer(mvf, no_eval=True, device="cpu")
+    part.train_loader.set_epoch(0)
+    before = {n: t.clone() for n, t in part.model.state_dict().items()}
+    batch = next(iter(part.train_loader))
+    part_loss = float(part.train_step(batch, part.device_batch(batch), 0, 0, 1e-3))
+    assert np.isfinite(part_loss), part_loss
+    state = part.model.state_dict()
+    assert all(torch.equal(state[n], t) for n, t in before.items()
+               if n.startswith("backbone."))
+    assert not torch.equal(state["res_finetune.blocks.1.mlp.fc1.weight"],
+                           before["res_finetune.blocks.1.mlp.fc1.weight"])
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                     and m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
-    print("NO_JAX_OK", metrics, mvf_metrics, mvf_loss)
+    print("NO_JAX_OK", metrics, mvf_metrics, mvf_loss, part_loss)
 """)
 
 

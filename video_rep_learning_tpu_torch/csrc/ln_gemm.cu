@@ -5,7 +5,10 @@
 // video_rep_learning_tpu/ops/matmul_gelu_pallas.py (`ln_matmul_bias_act`):
 // LN2 + fc1 + GELU of every ViT block, and LN1 + qkv inside the attention
 // half-block. With the LN off and a residual it also computes that
-// half-block's projection, `x + attn W_proj^T + b` (vit_block_pallas.py:166).
+// half-block's projection, `x + attn W_proj^T + b` (vit_block_pallas.py:166);
+// with the LN off and the GELU epilogue it replaces `_kernel` of the same
+// file (#7, `matmul_bias_gelu`: gelu(x W^T + b), the same product and
+// epilogue), the MLP's fc1 under VRL_FUSED_LN_MM=0.
 //
 // What bounds it on the H100: operations. fc1 at the MV-Former chunk
 // (31400 x 768 -> 3072, bf16) is 148 GFLOP against 290 MB of traffic, above
@@ -34,11 +37,13 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "gemm_common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace nvcuda;
+using namespace vrl;
 
 constexpr int kThreads = 256;
 constexpr int kBN = 128;            // output columns a block
@@ -48,62 +53,6 @@ constexpr int kCLd = kBN + 4;       // fp32 staging of the bf16 block's C
 constexpr int kBMBf16 = 64;
 constexpr int kBMF32 = 32;
 constexpr int kMaxSmem = 232448;    // 227 KB a block on the H100
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows m0 .. m0+BM-1 of x into the shared A panel (row stride lda), through
-// the LN when g is given, rounded to T; rows past M are zeros. One warp a
-// row at a time.
-template <typename T, int BM>
-__device__ void load_a_panel(const T* __restrict__ x, const float* __restrict__ g,
-                             const float* __restrict__ be, T* As, int lda, int m0,
-                             int M, int K, float eps) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < BM; r += kThreads / 32) {
-    T* dst = As + (size_t)r * lda;
-    const int m = m0 + r;
-    if (m >= M) {
-      for (int c = lane; c < K; c += 32) dst[c] = vrl::from_f32<T>(0.f);
-      continue;
-    }
-    const T* src = x + (size_t)m * K;
-    if (g == nullptr) {
-      for (int c = lane; c < K; c += 32) dst[c] = src[c];
-      continue;
-    }
-    float s = 0.f;
-    for (int c = lane; c < K; c += 32) s += vrl::to_f32(src[c]);
-    const float mu = vrl::warp_sum(s) / K;
-    float v = 0.f;
-    for (int c = lane; c < K; c += 32) {
-      const float d = vrl::to_f32(src[c]) - mu;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(vrl::warp_sum(v) / K + eps);
-    for (int c = lane; c < K; c += 32)
-      dst[c] = vrl::from_f32<T>((vrl::to_f32(src[c]) - mu) * rstd * g[c] + be[c]);
-  }
-}
-
-__device__ __forceinline__ float activate(float y, int act) {
-  if (act == 1) return 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
-  if (act == 2) {
-    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-    return 0.5f * y * (1.f + tanhf(c * (y + 0.044715f * y * y * y)));
-  }
-  return y;
-}
 
 template <typename T>
 __device__ __forceinline__ void finish(float acc, int m, int n, int F,
@@ -151,7 +100,7 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
   const int nk = K / kBK;
   load_b(0, 0);
   cp_async_commit();
-  load_a_panel<bf16, BM>(x, g, be, As, lda, m0, M, K, eps);
+  load_a_panel<bf16, BM, kThreads>(x, g, be, As, lda, m0, M, K, eps);
 
   const int warp = tid >> 5, wm = warp >> 2, wn = warp & 3;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
@@ -213,7 +162,7 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
   float* Bs = smf + BM * K;
   const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
-  load_a_panel<float, BM>(x, g, be, As, K, m0, M, K, eps);
+  load_a_panel<float, BM, kThreads>(x, g, be, As, K, m0, M, K, eps);
 
   float acc[4][4];
 #pragma unroll

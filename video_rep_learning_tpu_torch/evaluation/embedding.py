@@ -9,7 +9,9 @@ dropped.
 
 PyTorch runs each chunk at its exact length, so the JAX package's padded
 buckets (`bucket_size`, there for XLA's static shapes) are not carried over.
-Frames go to the device as uint8 and are preprocessed there. A finished
+Frames go to the device as uint8 and are preprocessed there. The sweep runs
+under inference mode, so a partially frozen ViT's front and back end both
+run without grad (no kernel saves anything for a backward). A finished
 video's embeddings stay on the device until the next video's work has been
 queued (the one-record holdback), so the copy back to the host does not stall
 the device between videos. The frame-packed sweep (`_iter_frameflat`) and

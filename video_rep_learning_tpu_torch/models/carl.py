@@ -3,7 +3,8 @@
 
 Counterpart of `video_rep_learning_tpu/models/carl.py` for two families: the
 ResNet backbone with the `late` transformer head (CARL), and the `smart`
-multi-entity head (MV-Former) over a fully frozen timm ViT or a ResNet.
+multi-entity head (MV-Former) over a fully or partially frozen timm ViT or
+a ResNet.
 Module names follow the reference `TransformerModel` state dict
 (`backbone`, `backbone.model` for a ViT, `res_finetune`, `embed`,
 `ssl_projection`, `classifier`, `cls_res_res`), so its checkpoints load
@@ -18,11 +19,16 @@ strictly.
 - Under USE_AMP the ResNet (trunk and finetuned tail) runs under bf16
   autocast and the ViT in bf16 (`models/vit.py`); the head stays fp32, as in
   the JAX package.
-- Training runs the fully frozen ViT forward only; the head trains.
-  `backbone_warmup_active` (TRAIN.BACKBONE_WARMUP) stops the gradient at
-  the backbone's features in the smart head, as in the JAX package.
-- Still to come, each with its slice: a partially frozen ViT (LAYER below
-  its depth, with kernels #7 and #9) and a ViT under TRAIN_BASE train_all,
+- A fully frozen ViT (LAYER >= its depth) runs forward only; the head
+  trains. A partially frozen one (LAYER = L below the depth) runs blocks
+  0..L-1 forward only in chunks, then the trainable `ViTBackEnd` (blocks
+  L.. and the final norm, `res_finetune`) with grad on all the frames at
+  once, through `torch.utils.checkpoint` under MODEL.REMAT (the JAX
+  package's `nn.remat`). `backbone_warmup_active` (TRAIN.BACKBONE_WARMUP)
+  stops the gradient at the backbone's features in the smart head, as in
+  the JAX package: with a partial ViT no gradient then reaches the back end
+  through them.
+- Still to come, each with its slice: a ViT under TRAIN_BASE train_all,
   late fusion over a ViT, QUANTIZE_BACKBONE (W8A8 int8 ViT matmuls).
 """
 
@@ -34,13 +40,14 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ConfigNode
 from ..data.splits import DATASET_TO_NUM_CLASSES
 from .embedder import Classifier, MLPHead, TransformerEmbModel
 from .mvformer import MultiEntityTransformerEmbModel
 from .resnet import ResNet50Stages, ResNet50Trunk
-from .vit import VIT_SPECS, ViTFrontEnd, ViTSpec, parse_smart_feats
+from .vit import VIT_SPECS, ViTBackEnd, ViTFrontEnd, ViTSpec, parse_smart_feats
 
 
 @dataclass(frozen=True)
@@ -67,6 +74,8 @@ class ModelSpec:
     train_base: str = "frozen"
     fusion_type: str = "late"     # late | smart
     vit_spec: Optional[ViTSpec] = None  # None = ResNet backbone
+    vit_front_blocks: int = 0     # frozen ViT blocks (the depth: fully frozen)
+    remat: bool = False           # MODEL.REMAT: recompute the trainable tail
     tap_blocks: Tuple[int, ...] = ()
     out_channel: int = 2048       # channels fed to the embedder
     use_cls_res: bool = False
@@ -85,8 +94,9 @@ class ModelSpec:
 
 
 def _resolve_vit(cfg, name, fusion_type):
-    """(spec, taps, out_channel) of a fully frozen timm ViT with the smart
-    head; the other ViT wirings raise, naming the slice that brings them."""
+    """(spec, taps, out_channel, frozen blocks) of a timm ViT with the smart
+    head, fully frozen (LAYER outside [0, depth)) or frozen up to block
+    LAYER; the other ViT wirings raise, naming the slice that brings them."""
     m = cfg.MODEL
     if name not in VIT_SPECS:
         raise ValueError(f"unknown TIMM model {name}")
@@ -94,14 +104,10 @@ def _resolve_vit(cfg, name, fusion_type):
     if fusion_type != "smart":
         raise NotImplementedError(
             "late fusion over a ViT backbone comes in a later slice")
-    if not (m.BASE_MODEL.LAYER < 0 or m.BASE_MODEL.LAYER >= vit.depth):
-        raise NotImplementedError(
-            "a partially frozen ViT (LAYER below its depth, ViTBackEnd) comes "
-            "with the slice that ports kernels #7 and #9")
     if m.TRAIN_BASE == "train_all":
         raise NotImplementedError(
-            "a ViT trained end to end (TRAIN_BASE train_all) comes with the "
-            "slice of the ViT kernels' backward passes")
+            "a ViT trained end to end (TRAIN_BASE train_all) comes in a later "
+            "slice (the patch-embed gradient and an unchunked front)")
     if m.QUANTIZE_BACKBONE:
         raise NotImplementedError(
             "QUANTIZE_BACKBONE (W8A8 int8 ViT matmuls) comes in a later slice")
@@ -109,13 +115,19 @@ def _resolve_vit(cfg, name, fusion_type):
     if any(t < 0 or t >= vit.depth for t in taps):
         raise ValueError(f"SMART_FEATS taps {taps} out of range for {name} "
                          f"(depth {vit.depth})")
-    return vit, taps, vit.embed_dim * len(taps)
+    layer = m.BASE_MODEL.LAYER
+    front = vit.depth if layer < 0 or layer >= vit.depth else layer
+    if front < vit.depth and any(t < front for t in taps):
+        raise ValueError("SMART_FEATS tap below the frozen/finetune split "
+                         "(`transformer.py:104-114`)")
+    return vit, taps, vit.embed_dim * len(taps), front
 
 
 def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
     """The JAX package's `resolve_model_spec` for the wirings ported so far:
     a ResNet with the late-fusion head (CARL), and the smart multi-entity
-    head (MV-Former) over a fully frozen timm ViT or a ResNet."""
+    head (MV-Former) over a fully or partially frozen timm ViT or a
+    ResNet."""
     m = cfg.MODEL
     e = m.EMBEDDER_MODEL
     network = m.BASE_MODEL.NETWORK
@@ -133,9 +145,9 @@ def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
         raise ValueError("FUSION_CLS requires a timm backbone with smart fusion")
     if e.CLS_GRAD_ONLY and not e.FUSION_CLS:
         raise ValueError("CLS_GRAD_ONLY requires FUSION_CLS")
-    vit, taps, upto, ft_start = None, (), 4, 0
+    vit, taps, upto, ft_start, front = None, (), 4, 0, 0
     if network.startswith("TIMM-"):
-        vit, taps, out_channel = _resolve_vit(cfg, network[5:], fusion_type)
+        vit, taps, out_channel, front = _resolve_vit(cfg, network[5:], fusion_type)
     else:
         out_channel = 2048  # layer4 ends either the trunk or the tail
         upto, ft_start = {3: (3, 4), 2: (2, 3)}.get(m.BASE_MODEL.LAYER, (4, 0))
@@ -165,6 +177,8 @@ def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
         train_base=m.TRAIN_BASE,
         fusion_type=fusion_type,
         vit_spec=vit,
+        vit_front_blocks=front,
+        remat=bool(m.REMAT),
         tap_blocks=taps,
         out_channel=out_channel,
         use_cls_res=bool(m.CLS_RES),
@@ -198,8 +212,12 @@ class CARLModel(nn.Module):
         if s.vit_spec is not None:
             self.backbone = ViTFrontEnd(
                 s.vit_spec, s.tap_blocks,
-                torch.bfloat16 if s.use_amp else torch.float32)
-            self.res_finetune = None
+                torch.bfloat16 if s.use_amp else torch.float32,
+                num_blocks=s.vit_front_blocks)
+            partial = self.backbone.model.norm is None
+            self.res_finetune = ViTBackEnd(
+                s.vit_spec, s.vit_front_blocks, s.tap_blocks,
+                s.frames_per_batch) if partial else None
         else:
             self.backbone = ResNet50Trunk(s.resnet_trunk_upto)
             self.res_finetune = (ResNet50Stages(s.resnet_finetune_start)
@@ -239,8 +257,8 @@ class CARLModel(nn.Module):
     def _run_frozen(self, frames):
         """The frozen trunk over (N, 3, H, W) frames in FRAMES_PER_BATCH
         chunks, without grad and with eval-mode BN (whole and differentiable
-        with TRAIN_BASE train_all). The ViT returns (taps, CLS) pairs, in its
-        own compute type."""
+        with TRAIN_BASE train_all). A fully frozen ViT returns (taps, CLS)
+        pairs, a partial one its token stream, in its own compute type."""
         if self.spec.vit_spec is not None:
             chunk = self.spec.frames_per_batch
             with torch.no_grad():
@@ -248,6 +266,8 @@ class CARLModel(nn.Module):
                         for i in range(0, frames.shape[0], chunk)]
             if len(outs) == 1:
                 return outs[0]
+            if isinstance(outs[0], torch.Tensor):
+                return torch.cat(outs)
             return tuple(torch.cat(parts) for parts in zip(*outs))
         if self.spec.train_base == "train_all":
             with self._autocast(frames.device):
@@ -264,13 +284,20 @@ class CARLModel(nn.Module):
         the CLS token on the (N, g, g, C) patch grid, and its CLS feature."""
         feats = self._run_frozen(frames)
         if self.spec.vit_spec is not None:
-            taps, cls = feats
+            taps, cls = feats if self.res_finetune is None else self._run_back(feats)
             g = self.spec.vit_spec.grid
             return taps[:, 1:].reshape(taps.shape[0], g, g, taps.shape[-1]), cls
         if self.res_finetune is not None:
             with self._autocast(frames.device):
                 feats = self.res_finetune(feats)
         return feats, None
+
+    def _run_back(self, tokens):
+        """The ViT's trainable tail on every frame at once (with grad where
+        it is on), recomputed in the backward under MODEL.REMAT."""
+        if self.spec.remat and torch.is_grad_enabled():
+            return checkpoint(self.res_finetune, tokens, use_reentrant=False)
+        return self.res_finetune(tokens)
 
     @staticmethod
     def _nchw(frames):

@@ -9,8 +9,10 @@ backward). The kernels are `csrc/flash_attn_fwd.cu` and
 `flash_attention` is differentiable: `FlashAttention` runs the forward kernel,
 saves its output and LSE, and its backward runs the backward kernel.
 `packed_vit_attention` is the counterpart of that module's
-`packed_vit_attention` (`_packed_kernel`), forward only (the ViT it serves is
-frozen); its kernel is `csrc/packed_attn.cu`.
+`packed_vit_attention` (`_packed_kernel`); its kernel is
+`csrc/packed_attn.cu`, and its backward, as the JAX package's custom_vjp
+(`attention_pallas.py:572`), is autograd of the plain version chunked over
+frames (`ops/plain_grad.py`).
 
 - A CUDA tensor launches the kernel or raises: there is no fallback.
 - A CPU tensor takes the plain version (`attention_reference`,
@@ -26,6 +28,7 @@ import math
 import torch
 
 from . import cuda_build
+from .plain_grad import refuse_grad, use_kernel, with_plain_grad
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 HEAD_DIMS = (32, 64)
@@ -121,6 +124,7 @@ def flash_attention_fwd(q, k, v, kv_mask=None, sm_scale=1.0):
         return attention_reference(q, k, v, kv_mask, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    refuse_grad("flash_attention_fwd", q, k, v)
     _check_cuda_inputs(q, k, v, kv_mask)
     B, H, Sq, d = q.shape
     out = torch.empty_like(q)
@@ -236,16 +240,9 @@ def packed_attention_reference(qkv, num_heads):
     return out.transpose(1, 2).reshape(B, N, D)
 
 
-def packed_vit_attention(qkv, num_heads):
-    """Self-attention straight from the packed (B, N, 3D) qkv, returning
-    (B, N, D); see `packed_attention_reference` for the math. CUDA tensors go
-    through the kernel (no head transposes, no copies), CPU tensors through
-    the plain version. `packed_vit_attention.launches` counts kernel
-    launches."""
-    if qkv.device.type == "cpu":
+def _packed_vit_attention(qkv, num_heads):
+    if not use_kernel("packed_vit_attention", qkv):
         return packed_attention_reference(qkv, num_heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"packed_vit_attention runs on cuda or cpu, not {qkv.device}")
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(f"qkv must be fp32 or bf16, got {qkv.dtype}")
     if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads) or not qkv.is_contiguous():
@@ -272,6 +269,16 @@ def packed_vit_attention(qkv, num_heads):
     cuda_build.check_launch("packed_attn", err)
     packed_vit_attention.launches += 1
     return out
+
+
+def packed_vit_attention(qkv, num_heads, grad_chunk=None):
+    """Self-attention straight from the packed (B, N, 3D) qkv, returning
+    (B, N, D); see `packed_attention_reference` for the math. CUDA tensors go
+    through the kernel (no head transposes, no copies), CPU tensors through
+    the plain version. `packed_vit_attention.launches` counts kernel
+    launches."""
+    return with_plain_grad(_packed_vit_attention, packed_attention_reference,
+                           (qkv, num_heads), batched=(0,), chunk=grad_chunk)
 
 
 packed_vit_attention.launches = 0

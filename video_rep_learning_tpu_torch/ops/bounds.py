@@ -56,6 +56,17 @@ def ln_matmul(rows, K, F, itemsize, ln=True, activation="none", residual=False):
     return nbytes, 2 * rows * K * F, _peak(itemsize), fp32_ops
 
 
+def mlp_block(rows, K, F, itemsize, activation="gelu_exact"):
+    """#9: x + act(LN(x) W1^T + b1) W2^T + b2 for x (rows, K), W1 (F, K),
+    W2 (K, F): x, both weights, fp32 LN parameters and biases in, y out (the
+    (rows, F) activation never leaves the chip). Operations: fc1 and fc2,
+    the LN, fc1's bias and activation, fc2's bias and residual."""
+    nbytes = itemsize * (2 * rows * K + 2 * F * K) + 4 * (3 * K + F)
+    fp32_ops = (LN_OPS * rows * K + rows * F * (1 + ACT_OPS[activation])
+                + 2 * rows * K)
+    return nbytes, 4 * rows * K * F, _peak(itemsize), fp32_ops
+
+
 def packed_attention(n, N, D, heads, itemsize):
     """#4: (n, N, 3D) qkv in, (n, N, D) out; q k^T and P V of every head
     (4 N^2 D a frame) and the softmax over n heads N^2 scores."""
@@ -184,7 +195,6 @@ def table():
     # MV-Former's ViT-B/8 frame backbone at 224 px: 785 tokens of 768, 12
     # heads of 64, bf16, in chunks of 40 frames (MODEL.BASE_MODEL.FRAMES_PER_BATCH)
     n, N, D, Hh = 40, 785, 768, 12
-    tok = n * N * D
     rows = [
         ("#1/#2 flash fwd", "(2, 8, 240, 32) fp32",
          *attention_fwd(2, 8, 240, 32), PEAK_FP32),
@@ -199,8 +209,12 @@ def table():
         ("#7 matmul + GELU", "(40, 785, 768) -> 3072 bf16",
          *ln_matmul(n * N, D, 4 * D, 2, ln=False, activation="gelu_exact")),
         ("#8 LayerNorm", "(40, 785, 768) bf16", *layernorm(n * N, D, 2)),
-        ("#9 LN + MLP + residual", "(40, 785, 768) bf16",
-         2 * (2 * tok + 8 * D * D), 4 * n * N * D * 4 * D, PEAK_BF16_TC),
+        ("#9 LN + MLP + residual", "(40, 785, 768), F 3072 bf16",
+         *mlp_block(n * N, D, 4 * D, 2)),
+        # the partially frozen ViT's trainable tail runs on all the frames of
+        # a step at once: 1 clip x 2 views x 240
+        ("#9 LN + MLP + residual", "(480, 785, 768), F 3072 bf16",
+         *mlp_block(480 * N, D, 4 * D, 2)),
         # the loss and its gradient over all N x N similarities of 128-d
         # embeddings, at N = 18 x 2 x 240 (the auto gate's reach)
         ("#10 SCL loss (forward)", "(8640, 128) fp32",

@@ -8,6 +8,8 @@ output in the input's type.
 
 - A CUDA tensor launches the kernel or raises: there is no fallback.
 - A CPU tensor takes the plain version, `layernorm_reference`.
+- Differentiable (`ops/plain_grad.py`): the backward is autograd of the
+  plain version, chunked over `grad_chunk` frames (`layernorm_pallas.py:77`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .plain_grad import use_kernel, with_plain_grad
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,14 +50,9 @@ def check_activation(name, x):
                          f"{tuple(x.shape)}")
 
 
-def fused_layernorm(x, scale, bias, eps=1e-6):
-    """LayerNorm of x (..., D) with fp32 scale and bias (D,). CUDA tensors go
-    through the kernel, CPU tensors through the plain version.
-    `fused_layernorm.launches` counts kernel launches."""
-    if x.device.type == "cpu":
+def _fused_layernorm(x, scale, bias, eps):
+    if not use_kernel("fused_layernorm", x, scale, bias):
         return layernorm_reference(x, scale, bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_layernorm runs on cuda or cpu, not {x.device}")
     check_activation("x", x)
     D = x.shape[-1]
     check_vector("scale", scale, D, x.device)
@@ -73,6 +71,14 @@ def fused_layernorm(x, scale, bias, eps=1e-6):
     cuda_build.check_launch("layernorm", err)
     fused_layernorm.launches += 1
     return y
+
+
+def fused_layernorm(x, scale, bias, eps=1e-6, grad_chunk=None):
+    """LayerNorm of x (..., D) with fp32 scale and bias (D,). CUDA tensors go
+    through the kernel, CPU tensors through the plain version.
+    `fused_layernorm.launches` counts kernel launches."""
+    return with_plain_grad(_fused_layernorm, layernorm_reference,
+                           (x, scale, bias, eps), batched=(0,), chunk=grad_chunk)
 
 
 fused_layernorm.launches = 0

@@ -20,12 +20,17 @@ the port scales the fp32 scores, as the JAX module path and `_reference` do.
 
 - CUDA tensors launch the three kernels or raise: there is no fallback.
 - CPU tensors take the plain version, `vit_attention_block_reference`.
+- Differentiable as one function (`ops/plain_grad.py`): the forward is the
+  three launches, the backward autograd of the plain version chunked over
+  `grad_chunk` frames, as the JAX package's custom_vjp
+  (`vit_block_pallas.py:282`) is the vjp of its `_reference`.
 """
 
 from __future__ import annotations
 
 from .attention import packed_attention_reference, packed_vit_attention
 from .matmul import ln_matmul_bias_act, ln_matmul_bias_act_reference
+from .plain_grad import use_kernel, with_plain_grad
 
 
 def vit_attention_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
@@ -36,14 +41,10 @@ def vit_attention_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
     return ln_matmul_bias_act_reference(o, None, None, wproj, bproj, residual=x)
 
 
-def vit_attention_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
-                        num_heads, eps=1e-6):
-    """x (B, N, D) + proj(MHA(LN(x))) with nn.Linear weights wqkv (3D, D) and
-    wproj (D, D) in x's type, fp32 biases and LN parameters. CUDA tensors go
-    through the kernels, CPU tensors through the plain version.
-    `vit_attention_block.launches` counts calls on CUDA (one a half-block);
-    each kernel counts its own launches."""
-    if x.device.type == "cpu":
+def _vit_attention_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                         num_heads, eps):
+    if not use_kernel("vit_attention_block", x, ln_scale, ln_bias, wqkv, bqkv,
+                      wproj, bproj):
         return vit_attention_block_reference(x, ln_scale, ln_bias, wqkv, bqkv,
                                              wproj, bproj, num_heads, eps)
     qkv = ln_matmul_bias_act(x, ln_scale, ln_bias, wqkv, bqkv, eps=eps)
@@ -51,6 +52,18 @@ def vit_attention_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     y = ln_matmul_bias_act(o, None, None, wproj, bproj, residual=x)
     vit_attention_block.launches += 1
     return y
+
+
+def vit_attention_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                        num_heads, eps=1e-6, grad_chunk=None):
+    """x (B, N, D) + proj(MHA(LN(x))) with nn.Linear weights wqkv (3D, D) and
+    wproj (D, D) in x's type, fp32 biases and LN parameters. CUDA tensors go
+    through the kernels, CPU tensors through the plain version.
+    `vit_attention_block.launches` counts calls on CUDA (one a half-block);
+    each kernel counts its own launches."""
+    return with_plain_grad(_vit_attention_block, vit_attention_block_reference,
+                           (x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                            num_heads, eps), batched=(0,), chunk=grad_chunk)
 
 
 vit_attention_block.launches = 0

@@ -3,8 +3,9 @@
 Counterpart of `video_rep_learning_tpu/train/checkpoint.py` (orbax there):
 every SAVE_INTERVAL epochs (and after the last) the trainer writes
 `LOGDIR/checkpoints/checkpoint_epoch_%05d.pth` = {epoch, model_state in the
-reference state-dict layout (what `models/weights.py` loads), optimizer_state,
-config}, and a run resumes from the newest one at the next epoch
+reference state-dict layout (what `models/weights.py` loads; a partially
+frozen ViT's back end under `res_finetune.*`), optimizer_state, config},
+and a run resumes from the newest one at the next epoch
 (`models/__init__.py:17-48`). Mid-epoch checkpoints with exact resume come in
 a later slice.
 """

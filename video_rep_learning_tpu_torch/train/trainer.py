@@ -19,10 +19,15 @@ data wait, 1 = H2D, 2 = step dispatch, 5 = logging).
 - Under USE_AMP the backbone runs in bf16 (autocast for a ResNet, the bf16
   weight copy for a ViT); parameters, the head and the loss stay fp32 (bf16
   has fp32's range, so no gradient scaling).
-- MV-Former (`configs_mvf/`) trains the same way: the fully frozen ViT runs
-  forward only, in chunks, and every `backbone.*` tensor stays as loaded;
-  TRAIN.BACKBONE_WARMUP (smart fusion only) stops the head's gradient at
-  the backbone's features for its first epochs.
+- MV-Former (`configs_mvf/`) trains the same way. A fully frozen ViT runs
+  forward only, in chunks, and every `backbone.*` tensor stays as loaded.
+  A partially frozen one (MODEL.BASE_MODEL.LAYER below the depth) runs its
+  front the same way and trains the back end (`res_finetune.*`: blocks
+  LAYER.. and the final norm) on every frame of the step, its kernels'
+  backward the plain composition chunked over FRAMES_PER_BATCH frames,
+  recomputed under MODEL.REMAT. TRAIN.BACKBONE_WARMUP (smart fusion only)
+  stops the head's gradient at the backbone's features for its first
+  epochs.
 - The SCL loss goes through `algos/scl.py::scl_loss_dispatch`: the fused
   CUDA kernels under VRL_FUSED_SCL=1, or at N >= 8192 frames by default.
 Left for later slices: `supervised_augment` (non-SSL training), the other
