@@ -25,8 +25,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      chunk (7 frames);
 4. eval path: `python -m video_rep_learning_tpu_torch.evaluate`'s function on
    a synthetic Pouring set with a full-width CARL model (seeded weights) and
-   the kendalls_tau + retrieval tasks; checks launches, finiteness, unit
-   norm and frame counts; reports frames/s;
+   the default four tasks (kendalls_tau, retrieval, classification,
+   event_completion); checks launches, finiteness, unit norm and frame
+   counts; reports frames/s;
 5. training path: `python -m video_rep_learning_tpu_torch.train`'s function,
    one epoch over the 6 train videos and a checkpoint, then
    `--continue_train` for a second epoch from it; checks the loss, which
@@ -64,6 +65,16 @@ Phases (any failure exits non-zero, and no result line is printed):
 13. card vs CPU: one fp32 partial-ViT training step, 8 frames a view,
    under the default gates and under VRL_FUSED_MLP=1, every `res_finetune`
    gradient tensor held.
+14. the micro-benchmarks of row 13 (`video_rep_learning_tpu_torch/tools/`,
+   the counterparts of the TPU scripts `tools/bench_ln_matmul.py`,
+   `bench_packed_attn.py`, `bench_attn_variants.py`, `bench_int8_pallas.py`,
+   `bench_vpu_bf16.py`), each through its `run("cuda")` at the TPU script's
+   shapes: the LN-once GEMM beside #6 and #8 + #7, the packed-attention
+   variants beside #4 at B = 40 and 160, the int8 and bf16 tensor-core GEMM,
+   the elementwise chain in three modes; every row held against its plain
+   version (tolerances above `TOOLS`), timed beside its plain version,
+   library call and bound. None of their four kernels launches on the model
+   paths of phases 4-13.
 Phase 3 also holds #7 (matmul + GELU) and #9 (the LN-MLP half-block)
 against their plain versions, times #9 at 480 frames too, and checks the
 six ViT kernels' gradients (the kernel forward, the plain backward chunked
@@ -85,6 +96,11 @@ from contextlib import contextmanager
 
 import numpy as np
 import torch
+
+# device time of back-to-back launches (CUDA events after a sleep kernel that
+# lets the host queue them all) beside the host's time to issue one call, and
+# kernel / plain / library times in turns
+from video_rep_learning_tpu_torch.tools.common import cuda_ms, timed
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
@@ -203,20 +219,6 @@ def env_vars(**values):
                 os.environ[k] = v
 
 
-def cuda_ms(fn, reps=50, warmup=5):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase_environment():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}")
@@ -312,21 +314,11 @@ def phase_kernel_vs_plain(main_lens):
         kern = lambda: flash_attention_fwd(q, k, v, None, scale)  # noqa: E731
         plain = lambda: attention_reference(q, k, v, None, scale)  # noqa: E731
         # alternate plain, kernel, kernel, plain: both see the same clocks
-        p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
+        p1, k1, k2, p2 = (cuda_ms(f, reps=50)[0] for f in (plain, kern, kern, plain))
         log(f"time {shape} fp32 no mask: flash_attn_fwd kernel "
             f"{(k1 + k2) / 2:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
             f"attention_reference {(p1 + p2) / 2:.4f} ms ({p1:.4f}, {p2:.4f})")
     return main_err
-
-
-def timed(kern, plain, library=None, reps=20):
-    """Kernel, plain and library times in turns (plain, kernel, kernel, plain,
-    then the library call twice), each the mean of its two runs."""
-    p1, k1, k2, p2 = (cuda_ms(f, reps=reps, warmup=min(5, reps))
-                      for f in (plain, kern, kern, plain))
-    lib = None if library is None else (cuda_ms(library, reps=reps, warmup=min(5, reps))
-                                        + cuda_ms(library, reps=reps, warmup=min(5, reps))) / 2
-    return (k1 + k2) / 2, (p1 + p2) / 2, lib
 
 
 def phase_attention_backward():
@@ -380,29 +372,31 @@ def phase_attention_backward():
     scale = d ** -0.5
     out, lse = flash_attention_fwd(q, k, v, mask, scale)
     entries = {}
-    ms, plain_ms, lib_ms = timed(
+    ms, plain_ms, lib_ms, host_ms = timed(
         lambda: flash_attention_fwd(q, k, v, mask, scale),
         lambda: attention_reference(q, k, v, mask, scale),
         lambda: F.scaled_dot_product_attention(q, k, v))
     keys = int(mask.sum())  # the masked keys need no work
     b_ms, b_by = bound(*attention_fwd(B, H, S, d, keys=keys))
     entries["flash_attn_fwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=lib_ms)
+                                     bound_by=b_by, library_ms=lib_ms,
+                                     host_ms=host_ms)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
 
     def sdpa_fwd_bwd():
         F.scaled_dot_product_attention(qg, kg, vg).backward(dout)
 
-    ms, plain_ms, lib_ms = timed(
+    ms, plain_ms, lib_ms, host_ms = timed(
         lambda: flash_attention_bwd(q, k, v, mask, out, lse, dout, scale),
         lambda: attention_backward_reference(q, k, v, mask, out, lse, dout, scale),
         sdpa_fwd_bwd)
     b_ms, b_by = bound(*attention_bwd(B, H, S, d, keys=keys))
     entries["flash_attn_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=lib_ms,
-                                     max_abs_err=main_err)
+                                     host_ms=host_ms, max_abs_err=main_err)
     for name, e in entries.items():
-        log(f"time {TRAIN_ATTN_SHAPE} fp32 masked: {name} kernel {e['ms']:.4f} ms, "
+        log(f"time {TRAIN_ATTN_SHAPE} fp32 masked: {name} kernel {e['ms']:.4f} ms "
+            f"(host {e['host_ms']:.4f} ms a call), "
             f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}), library (scaled_dot_product_attention, no mask"
             f"{', fwd+bwd' if name.endswith('bwd') else ''}) {e['library_ms']:.4f} ms")
@@ -488,17 +482,17 @@ def phase_augment():
         for dt in (torch.float32, torch.bfloat16):
             check(name, kern(*full, out_dtype=dt), plain(*full, out_dtype=dt), dt,
                   f"({BV}, {T}, 3, {args[0].shape[-2]}, {args[0].shape[-1]}) -> {S}")
-        ms, plain_ms, _ = timed(lambda: kern(*full, out_dtype=dtype),
+        ms, plain_ms, _, host_ms = timed(lambda: kern(*full, out_dtype=dtype),
                                 lambda: plain(*full, out_dtype=dtype))
         out_bytes = BV * T * 3 * S * S * (2 if dtype == torch.bfloat16 else 4)
         b_ms, b_by = bound(in_bytes + out_bytes,
                            photometric_flops(s["fscal"], T, S, *crop))
         entries[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=None,
+                             bound_by=b_by, library_ms=None, host_ms=host_ms,
                              max_abs_err=max_err[name])
         log(f"time {name} ({BV}, {T}) -> {S} {str(dtype)[6:]} out: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"library none")
+            f"{ms:.4f} ms (host {host_ms:.4f} ms a call), plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), library none")
     return entries
 
 
@@ -649,11 +643,13 @@ def phase_vit_kernels():
     }
     entries = {}
     for name, ((kern, plain), library, lib_what, work) in timing.items():
-        ms, plain_ms, lib_ms = timed(kern, plain, library)
+        ms, plain_ms, lib_ms, host_ms = timed(kern, plain, library)
         b_ms, b_by = bounds.bound(*work)
         entries[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=lib_ms, max_abs_err=max_err[name])
-        log(f"time {name} {VIT_SHAPES[0]} bf16: kernel {ms:.4f} ms, plain "
+                             library_ms=lib_ms, host_ms=host_ms,
+                             max_abs_err=max_err[name])
+        log(f"time {name} {VIT_SHAPES[0]} bf16: kernel {ms:.4f} ms (host "
+            f"{host_ms:.4f} ms a call), plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
             f"({lib_what}) {lib_ms:.4f} ms")
 
@@ -663,7 +659,7 @@ def phase_vit_kernels():
     gc = torch.Generator(device="cuda").manual_seed(SEED + 3)
     big = dict(a, x=(torch.randn(frames, N, D, generator=gc, device="cuda") * 2
                      + 0.5).bfloat16())
-    ms, plain_ms, lib_ms = timed(lambda: ln_mlp_block(*mlp_args(big)),
+    ms, plain_ms, lib_ms, _ = timed(lambda: ln_mlp_block(*mlp_args(big)),
                                  lambda: ln_mlp_block_reference(*mlp_args(big)),
                                  lambda: library_mlp(big["x"]), reps=3)
     b_ms, b_by = bounds.bound(*bounds.mlp_block(frames * N, D, 4 * D, 2))
@@ -764,9 +760,14 @@ class EmbeddingCheck:
         return 1.0
 
 
-def smoke_opts(extra=()):
+# the config's default EVAL.TASKS (their linear probes are the port's own,
+# numpy + scipy: this machine has no sklearn), and the training runs' two
+DEFAULT_TASKS = ("kendalls_tau", "retrieval", "classification", "event_completion")
+
+
+def smoke_opts(extra=(), tasks=("kendalls_tau", "retrieval")):
     return ["DATA.NUM_WORKERS", "4", "EVAL.TASKS",
-            "[kendalls_tau,retrieval,embedding_check]", *extra]
+            f"[{','.join(tasks)},embedding_check]", *extra]
 
 
 def phase_main_path(data_root, card):
@@ -778,14 +779,15 @@ def phase_main_path(data_root, card):
 
     logdir = os.path.join(WORK, "logs")
     argv = ["--workdir", data_root, "--logdir", logdir, "--cfg_file", CFG_FILE,
-            "--device", "cuda", "--opts", *smoke_opts()]
+            "--device", "cuda", "--opts", *smoke_opts(tasks=DEFAULT_TASKS)]
     cfg = cli.load_config(cli.parse_cli(argv)[0])
     torch.manual_seed(SEED)
     save_checkpoint(build_model(cfg), logdir, 0)
     log("CARL model (configs/scl_transformer_config.yml, full width, seeded "
         "weights) saved as checkpoint_epoch_00000.pth")
-    log("eval tasks: kendalls_tau and retrieval (they need only scipy; the "
-        "card's machine has no sklearn) + this script's embedding check")
+    log(f"eval tasks: the default four ({', '.join(DEFAULT_TASKS)}; the "
+        "probes are the port's numpy + scipy ones, and this machine has no "
+        "sklearn) + this script's embedding check")
 
     TASK_REGISTRY["embedding_check"] = EmbeddingCheck
     flash_attention_fwd.launches = 0
@@ -804,6 +806,9 @@ def phase_main_path(data_root, card):
     for split, frames, norm_err in EmbeddingCheck.seen:
         log(f"main path: {split} {frames} embeddings, finite, 128-d, "
             f"max |norm - 1| {norm_err:.2e}")
+    if not set(DEFAULT_TASKS) <= set(metrics):
+        raise AssertionError(f"the eval path ran {sorted(metrics)}, not the "
+                             f"default tasks {DEFAULT_TASKS}")
     for name, vals in metrics.items():
         if not all(np.isfinite(v) for v in vals.values()):
             raise AssertionError(f"task {name} gave {vals}")
@@ -860,7 +865,8 @@ def phase_card_vs_cpu(data_root, logdir, cfg_file=CFG_FILE, frames=96,
 
 
 def _launch_counters():
-    from video_rep_learning_tpu_torch.ops import (attention, layernorm, matmul,
+    from video_rep_learning_tpu_torch.ops import (attention, elementwise_chain,
+                                                  int8_matmul, layernorm, matmul,
                                                   photometric, scl, vit_block)
 
     return {"flash_attn_fwd": attention.flash_attention_fwd,
@@ -874,7 +880,12 @@ def _launch_counters():
             "packed_attn": attention.packed_vit_attention,
             "vit_attention_block": vit_block.vit_attention_block,
             "scl_rowsum": scl.scl_rowsum, "scl_loss_rows": scl.scl_loss_rows,
-            "scl_srow": scl.scl_srow, "scl_grad": scl.scl_grad}
+            "scl_srow": scl.scl_srow, "scl_grad": scl.scl_grad,
+            # the micro-benchmarks' kernels: no model path launches them
+            "ln_gemm_ln_once": matmul.ln_matmul_bias_act_ln_once,
+            "packed_attn_variant": attention.packed_attention_variant,
+            "int8_gemm": int8_matmul.tc_matmul,
+            "elementwise_chain": elementwise_chain.elementwise_chain}
 
 
 def _reset_launches():
@@ -1410,15 +1421,17 @@ def phase_scl_kernels():
                 meta, single=p["single"], noself=p["noself"]))
             work = bounds.scl_fused(N, C, pairs=pairs, positives=positives)
             for name in SCL_PASSES:
-                ms, plain_ms, _ = timed(*calls[name])
+                ms, plain_ms, _, host_ms = timed(*calls[name])
                 b_ms, b_by = bounds.bound(*work[SCL_WORK[name]])
-                log(f"time {name} N={N} single_noself fp32: kernel {ms:.4f} ms, "
+                log(f"time {name} N={N} single_noself fp32: kernel {ms:.4f} ms "
+                    f"(host {host_ms:.4f} ms a call), "
                     f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
                     f"{positives if SCL_WORK[name] in ('loss', 'srow') else pairs} of "
                     f"{N * N} pairs), library none")
                 if N == 480:  # the shape the MV-Former training path gives it
                     entries[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                          bound_by=b_by, library_ms=None,
+                                         host_ms=host_ms,
                                          max_abs_err=abs_errs[name])
 
             def fused_step():
@@ -1430,7 +1443,7 @@ def phase_scl_kernels():
                 scl_sequence_loss(x, lens, steps, masks, temperature=0.1,
                                   label_varience=10.0, negative_type=neg)["loss"].backward()
 
-            f_ms, p_ms, _ = timed(fused_step, plain_step)
+            f_ms, p_ms, _, _ = timed(fused_step, plain_step)
             fb = [bounds.bound(*work[k])[0] for k in ("forward", "backward")]
             log(f"time fused SCL loss + gradient N={N}: kernels {f_ms:.4f} ms, plain "
                 f"scl_sequence_loss + autograd {p_ms:.4f} ms, bound {sum(fb):.4f} ms "
@@ -1663,7 +1676,8 @@ def partial_step_launches(route, frames, chunk=40, depth=12, front=PARTIAL_FRONT
     gemm, mlp, mm, ln = MLP_ROUTES[route]
     return {"vit_attention_block": blocks, "packed_attn": blocks,
             "ln_gemm": (2 + gemm) * blocks, "ln_mlp_block": mlp * blocks,
-            "matmul_bias_gelu": mm * blocks, "layernorm": ln * blocks + back_runs}
+            "matmul_bias_gelu": mm * blocks, "layernorm": ln * blocks + back_runs,
+            "ln_gemm_ln_once": 0, "packed_attn_variant": 0}
 
 
 def _add(total, counts):
@@ -1831,22 +1845,111 @@ def phase_partial_step_card_vs_cpu(data_root):
                                  f"the CPU's ({what})")
 
 
+# Phase 14: the port's counterparts of the TPU micro-benchmarks of tools/
+# (row 13), each through its entry point `run("cuda")` at the TPU script's
+# shapes. Every row holds the kernel against its own plain version on the
+# same inputs on the card; the tolerances live beside each tool and are:
+# - the LN-once GEMM (and #6, #8 + #7) against #6's plain version: one bf16
+#   ulp of the largest value (both round the LN output and the activation
+#   at the same points, as #6 is held);
+# - each attention variant against its own variant's plain version (its
+#   clamp, exp or exp2, bf16 P, l from rounded or unrounded p, the full-row
+#   max for the max-subtracted forms): two bf16 ulps of the largest output,
+#   as #4 (a max-subtracted kernel rounds p against a running max, the plain
+#   version against the full-row one); and each plain version against the
+#   exact fp32 softmax on two images at two bf16 ulps of the exact output's
+#   largest value (P and the output round to bf16). The outputs are means
+#   of 785 values of 0.3 randn, at most ~0.06, so no limit is floored at 1;
+# - the int8 GEMM bit for bit (exact int32 sums on both sides); the bf16 one
+#   at 1e-5 of the largest value (exact bf16 products, fp32 sums in another
+#   order over K = 768);
+# - the elementwise chain bit for bit in all three modes (every op rounds
+#   once on both sides: __fmul_rn / __fadd_rn in fp32, the bf16x2
+#   intrinsics in bf16).
+TOOLS = ("bench_ln_matmul", "bench_packed_attn", "bench_attn_variants",
+         "bench_int8_pallas", "bench_vpu_bf16")
+# kernel entry: (tool, its row whose numbers the kernels line carries)
+TOOL_ENTRIES = {"ln_gemm_ln_once": ("bench_ln_matmul", "scratch (LN once)"),
+                "packed_attn_variant": ("bench_packed_attn", "nomax+exp2"),
+                "int8_gemm": ("bench_int8_pallas", "int8 (tc_matmul)"),
+                "elementwise_chain": ("bench_vpu_bf16", "fp32 in, fp32 math")}
+
+
+def phase_tools(card):
+    """14: each micro-benchmark's `run("cuda")` at the TPU scripts' full
+    shapes, its rows held and printed; returns the new kernels' entries and
+    every kernel's launches over the phase (each tool's check launch and its
+    timed launches)."""
+    import importlib
+
+    from video_rep_learning_tpu_torch.tools import common
+
+    _reset_launches()
+    rows = {}
+    for name in TOOLS:
+        tool = importlib.import_module(f"video_rep_learning_tpu_torch.tools.{name}")
+        t0 = time.time()
+        rows[name] = tool.run("cuda")
+        log(f"tools.{name} (the TPU script tools/{name}.py's shapes) on {card}, "
+            f"{time.time() - t0:.1f} s:")
+        common.show(rows[name])
+        torch.cuda.empty_cache()
+        bad = [r["name"] for r in rows[name] if not r["ok"]]
+        if bad:
+            raise AssertionError(f"tools.{name}: {bad} disagree with their plain "
+                                 "versions")
+    with open(os.path.join(WORK, "tools_rows.json"), "w") as f:
+        json.dump(rows, f)
+    launches = {k: n for k, n in _read_launches().items() if n}
+    log(f"tools: launches {launches} (#6, #7, #8 and #4 as the TPU scripts' "
+        "shipped rows)")
+    entries = {}
+    for kernel, (tool, which) in TOOL_ENTRIES.items():
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"phase 14 never launched {kernel}")
+        by_name = {r["name"]: r for r in rows[tool]}
+        r = by_name[which]
+        entries[kernel] = dict(
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], host_ms=r["host_ms"],
+            max_abs_err=r["err"],
+            row=which, rows_ms={x["name"]: x["ms"] for x in rows[tool]},
+            rows_err={x["name"]: x["err"] for x in rows[tool]})
+        if kernel == "packed_attn_variant":
+            entries[kernel]["rows_ms_b160"] = {
+                x["name"]: x["ms"] for x in rows["bench_attn_variants"]}
+        if kernel == "elementwise_chain":
+            entries[kernel]["slopes_ms"] = {
+                x["name"]: dict(reps_6_480=x["slope_ms"], spread=x["slope_spread_ms"],
+                                reps_6_48=x["slope_6_48_ms"]) for x in rows[tool]}
+    return entries, launches
+
+
+JAX_OPS = "video_rep_learning_tpu/ops/"
 SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
-    "flash_attn_fwd": ("csrc/flash_attn_fwd.cu", "attention_pallas.py:79"),
-    "flash_attn_bwd": ("csrc/flash_attn_bwd.cu", "attention_pallas.py:98"),
-    "crop_photometric": ("csrc/photometric.cu", "photometric_pallas.py:218"),
-    "photometric": ("csrc/photometric.cu", "photometric_pallas.py:208"),
-    "layernorm": ("csrc/layernorm.cu", "layernorm_pallas.py:36"),
-    "ln_gemm": ("csrc/ln_gemm.cu", "matmul_gelu_pallas.py:198"),
-    "matmul_bias_gelu": ("csrc/ln_gemm.cu", "matmul_gelu_pallas.py:72"),
-    "ln_mlp_block": ("csrc/mlp_block.cu", "matmul_gelu_pallas.py:341"),
-    "packed_attn": ("csrc/packed_attn.cu", "attention_pallas.py:485"),
+    "flash_attn_fwd": ("csrc/flash_attn_fwd.cu", JAX_OPS + "attention_pallas.py:79"),
+    "flash_attn_bwd": ("csrc/flash_attn_bwd.cu", JAX_OPS + "attention_pallas.py:98"),
+    "crop_photometric": ("csrc/photometric.cu", JAX_OPS + "photometric_pallas.py:218"),
+    "photometric": ("csrc/photometric.cu", JAX_OPS + "photometric_pallas.py:208"),
+    "layernorm": ("csrc/layernorm.cu", JAX_OPS + "layernorm_pallas.py:36"),
+    "ln_gemm": ("csrc/ln_gemm.cu", JAX_OPS + "matmul_gelu_pallas.py:198"),
+    "matmul_bias_gelu": ("csrc/ln_gemm.cu", JAX_OPS + "matmul_gelu_pallas.py:72"),
+    "ln_mlp_block": ("csrc/mlp_block.cu", JAX_OPS + "matmul_gelu_pallas.py:341"),
+    "packed_attn": ("csrc/packed_attn.cu", JAX_OPS + "attention_pallas.py:485"),
     # three launches of csrc/ln_gemm.cu and csrc/packed_attn.cu
-    "vit_attention_block": ("ops/vit_block.py", "vit_block_pallas.py:102"),
-    "scl_rowsum": ("csrc/scl.cu", "scl_pallas.py:104"),
-    "scl_loss_rows": ("csrc/scl.cu", "scl_pallas.py:122"),
-    "scl_srow": ("csrc/scl.cu", "scl_pallas.py:151"),
-    "scl_grad": ("csrc/scl.cu", "scl_pallas.py:176"),
+    "vit_attention_block": ("ops/vit_block.py", JAX_OPS + "vit_block_pallas.py:102"),
+    "scl_rowsum": ("csrc/scl.cu", JAX_OPS + "scl_pallas.py:104"),
+    "scl_loss_rows": ("csrc/scl.cu", JAX_OPS + "scl_pallas.py:122"),
+    "scl_srow": ("csrc/scl.cu", JAX_OPS + "scl_pallas.py:151"),
+    "scl_grad": ("csrc/scl.cu", JAX_OPS + "scl_pallas.py:176"),
+    # row 13, the TPU micro-benchmarks (phase 14; `build_jouter`,
+    # tools/bench_ln_matmul.py:46, is #6's schedule)
+    "ln_gemm_ln_once": ("csrc/ln_gemm.cu", "tools/bench_ln_matmul.py:85"),
+    # also bench_packed_attn.py:130 (build_multi), bench_attn_variants.py:108
+    "packed_attn_variant": ("csrc/packed_attn_variants.cu",
+                            "tools/bench_packed_attn.py:149"),
+    "int8_gemm": ("csrc/int8_gemm.cu", "tools/bench_int8_pallas.py:37"),
+    "elementwise_chain": ("csrc/elementwise_chain.cu", "tools/bench_vpu_bf16.py:53"),
 }
 
 
@@ -1883,9 +1986,23 @@ def main():
     partial_launches = phase_partial_train_path(data_root, card)
     torch.cuda.empty_cache()
     phase_partial_step_card_vs_cpu(data_root)
+    model_paths = {"training": train_launches, "fp32 step": step_launches,
+                   "MV-Former eval": mvf_launches, "MV-Former training": mvf_train_launches,
+                   "partial-ViT training": partial_launches}
+    strays = {(path, k): n for path, counts in model_paths.items()
+              for k, n in counts.items() if k in TOOL_ENTRIES and n}
+    if strays:
+        raise AssertionError(f"a model path launched a micro-benchmark kernel: {strays}")
+    log("model paths: none of " + ", ".join(TOOL_ENTRIES) + " launched")
+    torch.cuda.empty_cache()
+    tool_entries, tool_launches = phase_tools(card)
+    entries.update(tool_entries)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        if name in ("matmul_bias_gelu", "ln_mlp_block"):
+        if name in TOOL_ENTRIES:
+            path = "the micro-benchmarks' run('cuda') (phase 14)"
+            launches = tool_launches[name]
+        elif name in ("matmul_bias_gelu", "ln_mlp_block"):
             path = ("partial-ViT training (2 epochs under VRL_FUSED_MLP=1, a step on "
                     "each MLP route, warm steps)")
             launches = partial_launches[name]
@@ -1902,7 +2019,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"video_rep_learning_tpu_torch/{src}",
-            "replaces": f"video_rep_learning_tpu/ops/{replaces}",
+            "replaces": replaces,
             "launches": launches, "path": path,
             "eval_launches": eval_launches if name == "flash_attn_fwd" else 0,
             "mvf_eval_launches": mvf_launches[name],
@@ -1911,7 +2028,9 @@ def main():
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
-            **{k: v for k, v in e.items() if k.endswith("_480")}})
+            "host_ms": e["host_ms"],
+            **{k: v for k, v in e.items() if k.endswith("_480")
+               or k in ("row", "rows_ms", "rows_err", "rows_ms_b160", "slopes_ms")}})
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels (flash-attention forward and backward, the
 SSL crop+photometric and photometric kernels, the ViT's LayerNorm,
 LN + matmul, packed attention, attention half-block, matmul + GELU and the
-whole MLP half-block, and the four passes of the fused SCL loss) against
+whole MLP half-block, and the four passes of the fused SCL loss; and the
+kernels of the H100 micro-benchmarks: the LN-once GEMM, the packed-attention
+variants, the int8 / bf16 tensor-core GEMM and the elementwise chain) against
 their plain PyTorch versions; the ViT kernels' gradients (the kernel
 forward, the plain backward chunked over frames) against autograd of the
 plain versions; the JAX package's MLP gates reaching their kernels; and the
@@ -16,6 +18,7 @@ shapes)."""
 import pytest
 import torch
 
+from video_rep_learning_tpu_torch.ops import (elementwise_chain, int8_matmul)
 from video_rep_learning_tpu_torch.ops import (attention, layernorm, matmul,
                                               photometric, scl, vit_block)
 
@@ -501,3 +504,106 @@ def test_scl_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="rows must be"):
         scl.scl_srow(torch.zeros(64, 128, device=cuda), meta,
                      torch.zeros(64, 3, device=cuda), **kw)
+
+
+# the micro-benchmark kernels: one small and one ragged shape each
+@pytest.mark.parametrize("shape,F", [((1, 64, 128), 128), ((2, 100, 768), 384)],
+                         ids=str)
+def test_ln_matmul_ln_once_matches_plain(cuda, shape, F):
+    dtype = torch.bfloat16  # the LN-once kernel's only type
+    x, ln_s, ln_b, w, b = _vit_inputs(cuda, shape, dtype, 11, F=F)
+    before = matmul.ln_matmul_bias_act_ln_once.launches
+    got = matmul.ln_matmul_bias_act_ln_once(x, ln_s, ln_b, w, b, "gelu_exact")
+    torch.cuda.synchronize()
+    assert matmul.ln_matmul_bias_act_ln_once.launches == before + 1
+    want = matmul.ln_matmul_bias_act_reference(x, ln_s, ln_b, w, b, "gelu_exact")
+    _assert_vit("mm", dtype, got, want)
+
+
+# (exp2, nomax, bf16p, block_q, heads a block, images a block)
+ATTN_VARIANTS = [(False, False, False, 64, 1, 1), (True, False, False, 256, 2, 1),
+                 (True, True, False, 64, 2, 2), (True, True, True, 64, 4, 1)]
+
+
+@pytest.mark.parametrize("variant", ATTN_VARIANTS, ids=str)
+@pytest.mark.parametrize("shape", [(2, 64, 2), (2, 300, 4)], ids=str)
+def test_packed_attention_variant_matches_plain(cuda, shape, variant):
+    B, N, H = shape
+    exp2, nomax, bf16p, bq, hpb, ipb = variant
+    flags = dict(exp2=exp2, nomax=nomax, bf16p=bf16p)
+    g = torch.Generator().manual_seed(12)
+    qkv = (torch.randn(B, N, 3 * H * 64, generator=g) * 0.3).to(cuda, torch.bfloat16)
+    before = attention.packed_attention_variant.launches
+    got = attention.packed_attention_variant(
+        qkv, H, **flags, block_q=bq, heads_per_block=min(hpb, H),
+        images_per_block=ipb)
+    torch.cuda.synchronize()
+    assert attention.packed_attention_variant.launches == before + 1
+    want = attention.packed_attention_variant_reference(qkv, H, **flags)
+    # two bf16 ulps of the largest output, not floored at 1: the outputs are
+    # means of N values of 0.3 randn, of order 0.01-0.1
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert err <= 2 * 2.0 ** -7 * want.float().abs().max().item(), (variant, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("M,K,F", [(128, 64, 128), (256, 96, 384)], ids=str)
+def test_tc_matmul_matches_plain(cuda, M, K, F, dtype):
+    g = torch.Generator().manual_seed(13)
+    if dtype == torch.int8:
+        x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8).to(cuda)
+        w = torch.randint(-127, 128, (K, F), generator=g, dtype=torch.int8).to(cuda)
+    else:
+        x = torch.randn(M, K, generator=g).to(cuda, dtype)
+        w = torch.randn(K, F, generator=g).to(cuda, dtype)
+    before = int8_matmul.tc_matmul.launches
+    got = int8_matmul.tc_matmul(x, w)
+    torch.cuda.synchronize()
+    assert int8_matmul.tc_matmul.launches == before + 1
+    want = int8_matmul.tc_matmul_reference(x, w)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == torch.int8:  # exact int32 sums
+        assert torch.equal(got, want)
+    else:  # exact products summed in fp32 in another order
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("mode", list(elementwise_chain.MODES), ids=str)
+@pytest.mark.parametrize("n", [4096, 1003])
+def test_elementwise_chain_matches_plain_bit_for_bit(cuda, n, mode):
+    store, math = mode
+    g = torch.Generator().manual_seed(14)
+    x = torch.rand(n, generator=g).to(cuda, store)
+    before = elementwise_chain.elementwise_chain.launches
+    got = elementwise_chain.elementwise_chain(x, 7, math)
+    torch.cuda.synchronize()
+    assert elementwise_chain.elementwise_chain.launches == before + 1
+    assert torch.equal(got, elementwise_chain.elementwise_chain_reference(x, 7, math))
+
+
+def test_micro_benchmark_kernels_reject_bad_input(cuda):
+    x = torch.zeros(100, 64, dtype=torch.int8, device=cuda)
+    w = torch.zeros(64, 128, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="M % 128"):
+        int8_matmul.tc_matmul(x, w)
+    with pytest.raises(TypeError, match="int8 or both bf16"):
+        int8_matmul.tc_matmul(x.bfloat16(), w)
+    qkv = torch.zeros(2, 5, 3 * 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="block_q"):
+        attention.packed_attention_variant(qkv, 2, exp2=True, nomax=True,
+                                           bf16p=False, block_q=128)
+    with pytest.raises(TypeError, match="bf16"):
+        attention.packed_attention_variant(qkv.float(), 2, exp2=True, nomax=True,
+                                           bf16p=False)
+    with pytest.raises(TypeError, match="math"):
+        elementwise_chain.elementwise_chain(torch.zeros(8, device=cuda), 2,
+                                            torch.bfloat16)
+    x, ln_s, ln_b, w, b = _vit_inputs(cuda, (1, 64, 128), torch.float32, 11, F=128)
+    with pytest.raises(TypeError, match="bf16"):
+        matmul.ln_matmul_bias_act_ln_once(x, ln_s, ln_b, w, b, "gelu_exact")
+    x = torch.zeros(2, 8, 1408, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K <= 1376"):
+        matmul.ln_matmul_bias_act_ln_once(
+            x, None, None, torch.zeros(128, 1408, device=cuda, dtype=torch.bfloat16),
+            torch.zeros(128, device=cuda))

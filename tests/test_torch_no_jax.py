@@ -1,7 +1,9 @@
 """The port runs where JAX, flax and sklearn are absent (the GPU machine has
 none of flax and sklearn) and without the JAX package: in a subprocess that
-blocks all four, import the port and run a tiny CPU evaluation, from the
-`.npy` loaders through the model to the two scipy-only tasks, then two
+blocks all four, import the port (its micro-benchmark tools too) and run a
+tiny CPU evaluation, from the `.npy` loaders through the model to the
+default four tasks (their linear probes are the port's numpy + scipy
+ones), then two
 training steps, then an MV-Former evaluation (`configs_mvf/pouring_mvf.yml`
 with a small test ViT), one MV-Former training step, and one step of the
 same model frozen up to block 1 of 2 under MODEL.REMAT (the back end
@@ -29,14 +31,16 @@ SCRIPT = textwrap.dedent("""
     from video_rep_learning_tpu_torch.evaluation.evaluate import evaluate_once
     from video_rep_learning_tpu_torch.models import build_model
     from video_rep_learning_tpu_torch.train import Trainer
+    from video_rep_learning_tpu_torch.tools import (  # noqa: F401
+        bench_attn_variants, bench_int8_pallas, bench_ln_matmul,
+        bench_packed_attn, bench_vpu_bf16)
 
     torch.set_num_threads(1)
     cfg = get_cfg()
     cfg.PATH_TO_DATASET = sys.argv[1]
     cfg.IMAGE_SIZE = 32
     cfg.DATA.NUM_WORKERS = 0
-    cfg.EVAL.FRAMES_PER_BATCH = 16
-    cfg.EVAL.TASKS = ["kendalls_tau", "retrieval"]
+    cfg.EVAL.FRAMES_PER_BATCH = 16  # EVAL.TASKS: the default four
     e = cfg.MODEL.EMBEDDER_MODEL
     e.NUM_LAYERS, e.FC_LAYERS, e.CAPACITY_SCALAR = 1, [[32, True]], 1
     e.HIDDEN_SIZE, e.D_FF, e.EMBEDDING_SIZE = 32, 64, 16
@@ -46,7 +50,8 @@ SCRIPT = textwrap.dedent("""
     metrics = evaluate_once(cfg, model, build_eval_loaders(cfg, "train"),
                             build_eval_loaders(cfg, "val"), iterator_tasks,
                             tasks, 0, None, "cpu")
-    assert set(metrics) == {"kendalls_tau", "retrieval"}, metrics
+    assert set(metrics) == {"kendalls_tau", "retrieval", "classification",
+                            "event_completion"}, metrics
     assert all(np.isfinite(v["pouring"]) for v in metrics.values()), metrics
 
     cfg.TRAIN.NUM_FRAMES = 6

@@ -33,6 +33,20 @@
 // bf16; ln_scale, ln_bias (K,) and bias (F,) fp32; ln_scale null = no LN,
 // residual null = none. No allocation; launches on the caller's stream and
 // returns cudaGetLastError().
+//
+// `vrl_ln_gemm_ln_once` is the same function in the LN-once schedule of the
+// TPU micro-benchmark `_kernel_scratch` (tools/bench_ln_matmul.py:67,
+// `build_scratch`: the image's rows normalised once into VMEM scratch at
+// j == 0, every weight column tile reusing them), where `vrl_ln_gemm` is
+// that script's `_kernel_jouter` (:34), the prologue recomputed for every
+// column tile. bf16 only, the TPU script's type. A block owns 64 rows,
+// normalises them once into shared memory and then walks all F / 128
+// column tiles, the W tiles streamed through one cp.async double buffer
+// across the tile boundaries;
+// the bf16 epilogue stages through its own fp32 region, since the A panel
+// stays live (99,328 + 33,792 + 20,480 = 153,600 bytes at K = 768: one
+// block an SM). The grid is M / 64 row blocks, 491 at the MV-Former chunk:
+// 3.7 waves on 132 SMs, so the last wave runs 0.7 full.
 
 #include <mma.h>
 
@@ -200,6 +214,97 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
+// The LN-once schedule (see the header): one block a row panel, every
+// column tile of F in turn.
+size_t ln_once_smem_bf16(int K) {
+  return sizeof(bf16) * kBMBf16 * (K + 8) + sizeof(float) * kBMBf16 * kCLd +
+         2 * sizeof(bf16) * kBN * kBLd;
+}
+
+__global__ void __launch_bounds__(kThreads)
+gemm_bf16_ln_once_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
+                         const float* __restrict__ be, const bf16* __restrict__ w,
+                         const float* __restrict__ bias, const bf16* __restrict__ res,
+                         bf16* __restrict__ out, int M, int K, int F, int act,
+                         float eps) {
+  constexpr int BM = kBMBf16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lda = K + 8;
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  float* Cs = reinterpret_cast<float*>(smem + sizeof(bf16) * BM * lda);
+  bf16* Bs = reinterpret_cast<bf16*>(smem + sizeof(bf16) * BM * lda +
+                                     sizeof(float) * BM * kCLd);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM;
+  const int nk = K / kBK, total = (F / kBN) * nk;  // (column tile, K tile) pairs
+
+  auto load_b = [&](int t, int buf) {
+    const bf16* wt = w + (size_t)(t / nk) * kBN * K + (t % nk) * kBK;
+    bf16* dst = Bs + buf * kBN * kBLd;
+    for (int v = tid; v < kBN * kBK / 8; v += kThreads) {
+      const int r = v / (kBK / 8), c = (v % (kBK / 8)) * 8;
+      cp_async16(dst + r * kBLd + c, wt + (size_t)r * K + c);
+    }
+  };
+
+  load_b(0, 0);
+  cp_async_commit();
+  load_a_panel<bf16, BM, kThreads>(x, g, be, As, lda, m0, M, K, eps);
+
+  const int warp = tid >> 5, wm = warp >> 2, wn = warp & 3;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
+
+  for (int t = 0; t < total; ++t) {
+    const int kt = t % nk;
+    if (t + 1 < total) {
+      load_b(t + 1, (t + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t (and, the first time, the A panel) is in
+    const bf16* Bt = Bs + (t & 1) * kBN * kBLd;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * lda + kt * kBK + kk, lda);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], Bt + (wn * 32 + j * 16) * kBLd + kk, kBLd);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
+    }
+    __syncthreads();  // every warp is done with tile t before it is refilled
+    if (kt == nk - 1) {  // this column tile's sums are complete
+      const int n0 = (t / nk) * kBN;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * kCLd + wn * 32 + j * 16,
+                                  c[i][j], kCLd, wmma::mem_row_major);
+          wmma::fill_fragment(c[i][j], 0.f);
+        }
+      __syncthreads();
+      for (int idx = tid; idx < BM * kBN; idx += kThreads) {
+        const int r = idx / kBN, cc = idx % kBN;
+        if (m0 + r < M) finish(Cs[r * kCLd + cc], m0 + r, n0 + cc, F, bias, res, out, act);
+      }
+      // the next column tile's stores to Cs come after nk more barriers
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -240,6 +345,33 @@ int vrl_ln_gemm(const void* x, const void* ln_scale, const void* ln_bias,
         static_cast<const float*>(x), g, be, static_cast<const float*>(w), b,
         static_cast<const float*>(residual), static_cast<float*>(out), M, K, F, act,
         eps);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The same function and arguments as vrl_ln_gemm in the LN-once schedule,
+// for bf16 (dtype 1) only.
+int vrl_ln_gemm_ln_once(const void* x, const void* ln_scale, const void* ln_bias,
+                        const void* w, const void* bias, const void* residual,
+                        void* out, int M, int K, int F, int act, int dtype, float eps,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || K <= 0 || K % kBK || F <= 0 || F % kBN || act < 0 || act > 2)
+    return cudaErrorInvalidValue;
+  const auto* g = static_cast<const float*>(ln_scale);
+  const auto* be = static_cast<const float*>(ln_bias);
+  const auto* b = static_cast<const float*>(bias);
+  if (dtype == 1) {
+    const size_t smem = ln_once_smem_bf16(K);
+    if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        gemm_bf16_ln_once_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    gemm_bf16_ln_once_kernel<<<(M + kBMBf16 - 1) / kBMBf16, kThreads, smem, s>>>(
+        static_cast<const bf16*>(x), g, be, static_cast<const bf16*>(w), b,
+        static_cast<const bf16*>(residual), static_cast<bf16*>(out), M, K, F, act, eps);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;

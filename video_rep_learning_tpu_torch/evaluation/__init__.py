@@ -1,8 +1,8 @@
 """Evaluation task registry: the four embedding tasks and `get_tasks`.
 
-Counterpart of `video_rep_learning_tpu/evaluation/__init__.py`. Importing
-this package pulls in neither JAX nor sklearn: the two sklearn tasks import
-it when they run.
+Counterpart of `video_rep_learning_tpu/evaluation/__init__.py`. Neither
+importing this package nor running its four tasks needs JAX or sklearn
+(the linear probes are `linear_models.py`'s).
 """
 
 from __future__ import annotations

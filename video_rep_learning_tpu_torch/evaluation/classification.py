@@ -1,9 +1,12 @@
 """Phase-classification linear probe.
 
 Counterpart of `video_rep_learning_tpu/evaluation/classification.py`, the
-same math line for line: sklearn LogisticRegression on frame embeddings over
-train-video fractions; returns the val accuracy at the last fraction.
-sklearn is imported where it is used, so the package imports without it.
+same math line for line: an L2 logistic regression (lbfgs, C = 1) on frame
+embeddings over train-video fractions; returns the val accuracy at the last
+fraction. The default linear probe is the port's own
+(`linear_models.LogisticRegression`, sklearn's estimator in numpy and
+scipy), so the task runs where sklearn is absent; only the `svm` probe, never
+the default, imports sklearn, where it is used.
 """
 
 from __future__ import annotations
@@ -11,15 +14,13 @@ from __future__ import annotations
 import numpy as np
 
 from ..logging_utils import get_logger
+from .linear_models import LogisticRegression
 
 logger = get_logger(__name__)
 
 
 def fit_linear_model(train_embs, train_labels, val_embs, val_labels):
-    from sklearn.linear_model import LogisticRegression
-
-    lin_model = LogisticRegression(max_iter=100000, solver="lbfgs", verbose=0)
-    lin_model.fit(train_embs, train_labels)
+    lin_model = LogisticRegression(max_iter=100000).fit(train_embs, train_labels)
     return (lin_model, lin_model.score(train_embs, train_labels),
             lin_model.score(val_embs, val_labels))
 

@@ -15,7 +15,7 @@ run without grad (no kernel saves anything for a backward). A finished
 video's embeddings stay on the device until the next video's work has been
 queued (the one-record holdback), so the copy back to the host does not stall
 the device between videos. The frame-packed sweep (`_iter_frameflat`) and
-EVAL.PACK_VIDEOS come in a later slice.
+EVAL.PACK_VIDEOS (which raises) come in a later slice.
 """
 
 from __future__ import annotations
@@ -63,6 +63,10 @@ def iter_video_embeddings(cfg, model, data_loader, device):
         raise NotImplementedError(
             "DATA.NUM_CONTEXTS > 1 (conv/vanilla embedders) comes with the "
             "TCC/TCN slice")
+    if int(cfg.EVAL.PACK_VIDEOS) > 1:
+        raise NotImplementedError(
+            "EVAL.PACK_VIDEOS > 1 (the frame-packed sweep) comes with ROADMAP "
+            "queue 1 item 7")
     max_fpb = cfg.EVAL.FRAMES_PER_BATCH
     prev = None
     for item in data_loader:

@@ -2,9 +2,9 @@
 
 Counterpart of `video_rep_learning_tpu/evaluation/event_completion.py`, the
 same math line for line: per phase class a signed normalised
-distance-to-last-transition target, one sklearn LinearRegression per output,
-score = mean R^2. sklearn is imported where it is used, so the package
-imports without it.
+distance-to-last-transition target, one least-squares fit with intercept
+per output (sklearn's LinearRegression there, the port's
+`linear_models.LeastSquares` here, in numpy and scipy), score = mean R^2.
 """
 
 from __future__ import annotations
@@ -13,31 +13,9 @@ import numpy as np
 
 from ..data.splits import DATASET_TO_NUM_CLASSES
 from ..logging_utils import get_logger
+from .linear_models import LeastSquares
 
 logger = get_logger(__name__)
-
-
-class VectorRegression:
-    """Independent regressor per output column."""
-
-    def __init__(self, estimator):
-        self.estimator = estimator
-
-    def fit(self, x, y):
-        import sklearn.base
-
-        _, m = y.shape
-        self.estimators_ = [sklearn.base.clone(self.estimator).fit(x, y[:, i])
-                            for i in range(m)]
-        return self
-
-    def predict(self, x):
-        return np.hstack([est.predict(x)[:, np.newaxis]
-                          for est in self.estimators_])
-
-    def score(self, x, y):
-        return np.mean([est.score(x, y[:, i])
-                        for i, est in enumerate(self.estimators_)])
 
 
 def regression_labels_for_class(labels, class_idx):
@@ -56,14 +34,11 @@ def get_targets_from_labels(all_class_labels, num_classes):
 
 
 def fit_model(train_embs, train_labels, val_embs, val_labels):
-    from sklearn.linear_model import LinearRegression
-
     train_embs = np.concatenate(train_embs, axis=0)
     train_labels = np.concatenate(train_labels, axis=0)
     val_embs = np.concatenate(val_embs, axis=0)
     val_labels = np.concatenate(val_labels, axis=0)
-    lin_model = VectorRegression(LinearRegression())
-    lin_model.fit(train_embs, train_labels)
+    lin_model = LeastSquares().fit(train_embs, train_labels)
     return (lin_model, lin_model.score(train_embs, train_labels),
             lin_model.score(val_embs, val_labels))
 

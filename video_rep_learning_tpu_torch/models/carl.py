@@ -151,6 +151,11 @@ def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
     else:
         out_channel = 2048  # layer4 ends either the trunk or the tail
         upto, ft_start = {3: (3, 4), 2: (2, 3)}.get(m.BASE_MODEL.LAYER, (4, 0))
+        if m.REMAT and ft_start:
+            raise NotImplementedError(
+                "MODEL.REMAT over a trainable ResNet tail (the JAX package's "
+                "nn.remat(ResNet50Stages)) comes with ROADMAP queue 1 item 8; "
+                "the port recomputes only a ViT back end")
     cap = e.CAPACITY_SCALAR
     if cfg.DATASETS[0] == "finegym":
         num_classes = cfg.EVAL.CLASS_NUM

@@ -13,6 +13,13 @@ saves its output and LSE, and its backward runs the backward kernel.
 `csrc/packed_attn.cu`, and its backward, as the JAX package's custom_vjp
 (`attention_pallas.py:572`), is autograd of the plain version chunked over
 frames (`ops/plain_grad.py`).
+`packed_attention_variant` computes the same attention in each form the
+TPU micro-benchmarks compare (`tools/bench_packed_attn.py`,
+`tools/bench_attn_variants.py`: exp2, the max-free softmax, P rounded to
+bf16 before its sum, 256-row query tiles, heads and images a block); its
+kernel is `csrc/packed_attn_variants.cu` and its plain version,
+`packed_attention_variant_reference`, rounds as each variant does. No model
+path takes it.
 
 - A CUDA tensor launches the kernel or raises: there is no fallback.
 - A CPU tensor takes the plain version (`attention_reference`,
@@ -282,3 +289,97 @@ def packed_vit_attention(qkv, num_heads, grad_chunk=None):
 
 
 packed_vit_attention.launches = 0
+
+
+LOG2E = 1.4426950408889634
+VARIANT_HEAD_DIM = 64  # csrc/packed_attn_variants.cu's head width
+VARIANT_BLOCK_Q = (64, 256)
+PLAIN_CHUNK = 40  # images a plain-version pass: (40, H, N, N) fp32 scores
+
+
+def variant_scale(dh, exp2):
+    """The TPU kernels' logit scale: 1/sqrt(dh), times log2(e) with exp2."""
+    return float(1.0 / math.sqrt(dh) * (LOG2E if exp2 else 1.0))
+
+
+def packed_attention_variant_reference(qkv, num_heads, *, exp2, nomax, bf16p):
+    """`packed_attention_reference`'s attention as the TPU variant kernels
+    compute it, one-shot over each row: s = (q k^T in fp32) * scale
+    (`variant_scale`); p = exp2(min(s, 110)) (exp(min(s, 76)) without exp2)
+    with `nomax`, else exp2 or exp of s minus the row max; l sums p, or p
+    rounded to qkv's type with `bf16p`; out = (p rounded to qkv's type) v in
+    fp32, over l, rounded to qkv's type. PLAIN_CHUNK images at a time bound
+    the fp32 scores."""
+    B, N, three_d = qkv.shape
+    D = three_d // 3
+    dh = D // num_heads
+    scale = variant_scale(dh, exp2)
+    expo = torch.exp2 if exp2 else torch.exp
+    outs = []
+    for s0 in range(0, B, PLAIN_CHUNK):
+        part = qkv[s0:s0 + PLAIN_CHUNK]
+        n = part.shape[0]
+        q, k, v = (t.reshape(n, N, num_heads, dh).transpose(1, 2).float()
+                   for t in part.split(D, dim=-1))
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+        if nomax:
+            p = expo(torch.clamp(s, max=110.0 if exp2 else 76.0))
+        else:
+            p = expo(s - s.amax(-1, keepdim=True))
+        del s
+        pr = p.to(qkv.dtype).float()
+        l = (pr if bf16p else p).sum(-1, keepdim=True)
+        del p
+        o = torch.einsum("bhqk,bhkd->bhqd", pr, v) / l
+        outs.append(o.transpose(1, 2).reshape(n, N, D).to(qkv.dtype))
+    return torch.cat(outs)
+
+
+def packed_attention_variant(qkv, num_heads, *, exp2, nomax, bf16p, block_q=64,
+                             heads_per_block=2, images_per_block=1):
+    """Self-attention of the packed bf16 (B, N, 3D) qkv in one of the TPU
+    micro-benchmarks' forms (see `packed_attention_variant_reference` for
+    the math); `block_q` (64 or 256), `heads_per_block` and
+    `images_per_block` set the kernel's schedule only. A CUDA tensor
+    launches csrc/packed_attn_variants.cu or raises, a CPU tensor takes the
+    plain version. It records no gradient.
+    `packed_attention_variant.launches` counts kernel launches."""
+    flags = dict(exp2=exp2, nomax=nomax, bf16p=bf16p)
+    if not use_kernel("packed_attention_variant", qkv):
+        return packed_attention_variant_reference(qkv, num_heads, **flags)
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"qkv must be bf16, got {qkv.dtype}")
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads) or not qkv.is_contiguous():
+        raise ValueError(f"qkv must be a contiguous (B, N, 3 * {num_heads} * dh) "
+                         f"tensor, got {tuple(qkv.shape)}")
+    B, N, three_d = qkv.shape
+    D = three_d // 3
+    dh = D // num_heads
+    if dh != VARIANT_HEAD_DIM:
+        raise ValueError(f"head width {dh} not supported; the kernel takes "
+                         f"{VARIANT_HEAD_DIM}")
+    if block_q not in VARIANT_BLOCK_Q:
+        raise ValueError(f"block_q {block_q} not in {VARIANT_BLOCK_Q}")
+    if num_heads % heads_per_block or B % images_per_block:
+        raise ValueError(f"heads_per_block {heads_per_block} must divide "
+                         f"{num_heads} heads and images_per_block "
+                         f"{images_per_block} the {B} images")
+    if B // images_per_block > 65535:
+        raise ValueError(f"grid too large: B={B}")
+    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    if B == 0 or N == 0:
+        return out
+    fn = cuda_build.kernel_fn("packed_attn_variants", "vrl_packed_attn_variant",
+                              (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 9
+                              + (ctypes.c_float, ctypes.c_void_p))
+    with torch.cuda.device(qkv.device):
+        err = fn(qkv.data_ptr(), out.data_ptr(), B, num_heads, N, int(exp2),
+                 int(nomax), int(bf16p), block_q, heads_per_block,
+                 images_per_block, variant_scale(dh, exp2),
+                 torch.cuda.current_stream(qkv.device).cuda_stream)
+    cuda_build.check_launch("packed_attn_variants", err)
+    packed_attention_variant.launches += 1
+    return out
+
+
+packed_attention_variant.launches = 0

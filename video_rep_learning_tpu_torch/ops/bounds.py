@@ -3,7 +3,8 @@ JAX package: the larger of the bytes its function must move (each input
 read once, each output written once) over the memory rate, and its
 operations over the peak rate for their type (the card's published dense
 peaks: 3.35 TB/s, 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16
-in them; 700 W). `chip_smoke.py` uses `bound` for the kernels it times; this
+in them, 1,979 TOPS int8 in them, 133.8 TFLOP/s bf16 outside them; 700 W).
+`chip_smoke.py` uses `bound` for the kernels it times; this
 script prints the table for every row at the shapes its workload gives it:
 
     python -m video_rep_learning_tpu_torch.ops.bounds
@@ -14,6 +15,13 @@ from __future__ import annotations
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_BF16_TC = 989e12
+# dense int8 on the tensor cores (NVIDIA H100 data sheet, SXM, without
+# sparsity): 1,979 TOPS
+PEAK_INT8_TC = 1979e12
+# bf16 outside the tensor cores, on packed bf16x2 operands (NVIDIA H100
+# Tensor Core GPU Architecture white paper, SXM5: 133.8 TFLOPS bf16
+# non-tensor, twice the fp32 rate)
+PEAK_BF16_VEC = 133.8e12
 
 
 def bound(nbytes, flops, peak_flops=PEAK_FP32, fp32_ops=0):
@@ -84,6 +92,23 @@ def vit_attention_block(n, N, D, heads, itemsize):
     fp32_ops = (LN_OPS * rows * D + SOFTMAX_OPS * n * heads * N * N
                 + rows * 3 * D + 2 * rows * D)
     return nbytes, flops, _peak(itemsize), fp32_ops
+
+
+def tc_matmul(M, K, F, itemsize):
+    """Row 13f: x (M, K) @ w (K, F), int8 (itemsize 1) -> int32 on the int8
+    tensor cores, or bf16 (2) -> fp32 on the bf16 ones: x and w in, the
+    4-byte sums out."""
+    return (itemsize * (M * K + K * F) + 4 * M * F, 2 * M * K * F,
+            PEAK_INT8_TC if itemsize == 1 else PEAK_BF16_TC)
+
+
+def elementwise_chain(n, reps, itemsize, math_itemsize):
+    """Row 13g: `reps` reps of the 8-op chain over n values stored in
+    `itemsize` bytes (read once, written once), in fp32 (math_itemsize 4)
+    or packed bf16 (2) outside the tensor cores. `bound` takes the ops as
+    its `flops` at this peak."""
+    return (2 * itemsize * n, 8 * n * reps,
+            PEAK_BF16_VEC if math_itemsize == 2 else PEAK_FP32)
 
 
 def attention_fwd(B, H, S, d, itemsize=4, keys=None):
@@ -231,6 +256,22 @@ def table():
          frames * 3 * H_ * W_ + 2 * frames * 3 * S * S,
          (JITTER_OPS + BLUR_OPS + GRAY_OPS + NORM_OPS) * frames * S * S
          + frames * crop_ops(S, H_, W_), PEAK_FP32),
+        # row 13: the TPU micro-benchmarks of tools/, at their own shapes
+        ("#13a/b LN + fc1 + GELU (tools)", "(40, 785, 768) -> 3072 bf16",
+         *ln_matmul(n * N, D, 4 * D, 2, activation="gelu_exact")),
+        ("#13c/d packed attention (tools)", "(40, 785, 2304) bf16",
+         *packed_attention(n, N, D, Hh, 2)),
+        ("#13e packed attention (tools)", "(160, 785, 2304) bf16",
+         *packed_attention(160, N, D, Hh, 2)),
+        ("#13f int8 matmul (tools)", "(31360, 768) x (768, 3072) s8",
+         *tc_matmul(31360, D, 4 * D, 1)),
+        ("#13f bf16 matmul (tools)", "(31360, 768) x (768, 3072) bf16",
+         *tc_matmul(31360, D, 4 * D, 2)),
+        # the slope between REPS 6 and 48: 42 reps, no bytes
+        ("#13g chain slope, fp32 math", "(48, 512, 512), 42 reps",
+         0, elementwise_chain(48 * 512 * 512, 42, 4, 4)[1], PEAK_FP32),
+        ("#13g chain slope, bf16 math", "(48, 512, 512), 42 reps",
+         0, elementwise_chain(48 * 512 * 512, 42, 2, 2)[1], PEAK_BF16_VEC),
     ]
     return rows
 

@@ -72,6 +72,11 @@ class Trainer:
         if not cfg.SSL:
             raise NotImplementedError(
                 "supervised (non-SSL) training comes in a later slice")
+        if cfg.CHECKPOINT.SAVE_EVERY_N_ITERS > 0:
+            raise NotImplementedError(
+                "CHECKPOINT.SAVE_EVERY_N_ITERS > 0 (mid-epoch checkpoints with "
+                "exact resume) comes with ROADMAP queue 1 item 5; the port "
+                "checkpoints once an epoch")
         self.cfg = cfg
         self.device = torch.device(device)
         torch.manual_seed(cfg.RNG_SEED)  # the initial weights
