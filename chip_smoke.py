@@ -19,10 +19,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      (2 views x 240 frames of 256x256 uint8 -> 224), every flag, blur sigma
      0.1 and 2.0, a padded canvas, fp32 and bf16 output;
    - the ViT kernels (LayerNorm, LN + matmul + bias + activation with each
-     activation and with the residual epilogue, packed attention, the
-     attention half-block, matmul + GELU, the LN-MLP half-block) in fp32
-     and bf16 at the MV-Former chunk (40 x 785 x 768) and a ragged last
-     chunk (7 frames);
+     activation and with the residual epilogue, packed attention in both
+     softmax forms, the attention half-block, matmul + GELU, the LN-MLP
+     half-block) in fp32 and bf16 at the MV-Former chunk (40 x 785 x 768)
+     and a ragged last chunk (7 frames); the block's three GEMMs and both
+     attention forms timed with their TFLOP/s, bound share and library
+     ratio;
 4. eval path: `python -m video_rep_learning_tpu_torch.evaluate`'s function on
    a synthetic Pouring set with a full-width CARL model (seeded weights) and
    the default four tasks (kendalls_tau, retrieval, classification,
@@ -69,7 +71,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    the counterparts of the TPU scripts `tools/bench_ln_matmul.py`,
    `bench_packed_attn.py`, `bench_attn_variants.py`, `bench_int8_pallas.py`,
    `bench_vpu_bf16.py`), each through its `run("cuda")` at the TPU script's
-   shapes: the LN-once GEMM beside #6 and #8 + #7, the packed-attention
+   shapes: #6 in both TPU schedules' rows beside #8 + #7, the packed-attention
    variants beside #4 at B = 40 and 160, the int8 and bf16 tensor-core GEMM,
    the elementwise chain in three modes; every row held against its plain
    version (tolerances above `TOOLS`), timed beside its plain version,
@@ -501,8 +503,9 @@ def phase_vit_kernels():
     versions in fp32 and bf16 at the MV-Former chunk and a ragged last chunk,
     with each activation; then each timed in bf16 (the path's type under
     USE_AMP) at the chunk, beside its plain version, a library composition
-    of the same function and its bound, and #9 again at the trainable
-    tail's 480 frames."""
+    of the same function and its bound; the three GEMMs of a block (qkv,
+    proj, fc1) and #4 in both softmax forms with their rates, bound shares
+    and library ratios; and #9 again at the trainable tail's 480 frames."""
     import torch.nn.functional as F
 
     from video_rep_learning_tpu_torch.ops import bounds
@@ -517,6 +520,12 @@ def phase_vit_kernels():
         vit_attention_block, vit_attention_block_reference)
 
     g = torch.Generator().manual_seed(SEED + 3)
+
+    def with_env(fn, **values):
+        def call():
+            with env_vars(**values):
+                return fn()
+        return call
 
     def inputs(shape, dtype):
         n, N, D = shape
@@ -551,6 +560,10 @@ def phase_vit_kernels():
                  lambda: ln_matmul_bias_act_reference(a["x"], None, None, a["wp"],
                                                       a["bp"], residual=a["x"]))],
             "packed_attn": [("", lambda: packed_vit_attention(a["qkv"], heads),
+                             lambda: packed_attention_reference(a["qkv"], heads)),
+                            ("VRL_ATTN_MAXSUB=1",
+                             with_env(lambda: packed_vit_attention(a["qkv"], heads),
+                                      VRL_ATTN_MAXSUB="1"),
                              lambda: packed_attention_reference(a["qkv"], heads))],
             "vit_attention_block": [("", lambda: vit_attention_block(
                 a["x"], a["ln_s"], a["ln_b"], a["wqkv"], a["bqkv"], a["wp"],
@@ -652,6 +665,52 @@ def phase_vit_kernels():
             f"{host_ms:.4f} ms a call), plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
             f"({lib_what}) {lib_ms:.4f} ms")
+
+    # the three GEMMs of a block and attention in both softmax forms, each in
+    # turns with its library call (kernel, library, library, kernel): rate,
+    # share of the bound, ratio to the library
+    o_in = packed_vit_attention(a["qkv"], heads)
+
+    def lnx():
+        return F.layer_norm(a["x"], (D,), lib["ln_s"], lib["ln_b"], 1e-6)
+
+    def attn(maxsub):
+        return with_env(lambda: packed_vit_attention(a["qkv"], heads),
+                        VRL_ATTN_MAXSUB=maxsub)
+
+    parts = {
+        ("ln_gemm", "qkv: LN1 + 768 -> 2304"): (
+            lambda: ln_matmul_bias_act(a["x"], a["ln_s"], a["ln_b"], a["wqkv"], a["bqkv"]),
+            lambda: F.linear(lnx(), a["wqkv"], lib["bqkv"]),
+            bounds.ln_matmul(rows, D, 3 * D, 2)),
+        ("ln_gemm", "proj: 768 -> 768 + residual"): (
+            lambda: ln_matmul_bias_act(o_in, None, None, a["wp"], a["bp"], residual=a["x"]),
+            lambda: a["x"] + F.linear(o_in, a["wp"], lib["bp"]),
+            bounds.ln_matmul(rows, D, D, 2, ln=False, residual=True)),
+        ("ln_gemm", "fc1: LN2 + 768 -> 3072 + GELU"): (
+            lambda: ln_matmul_bias_act(a["x"], a["ln_s"], a["ln_b"], a["w1"], a["b1"],
+                                       "gelu_exact"),
+            lambda: F.gelu(F.linear(lnx(), a["w1"], lib["b1"])),
+            bounds.ln_matmul(rows, D, 4 * D, 2, activation="gelu_exact")),
+        ("packed_attn", "max-free softmax"): (
+            attn("0"), lambda: F.scaled_dot_product_attention(*split),
+            bounds.packed_attention(n, N, D, heads, 2)),
+        ("packed_attn", "VRL_ATTN_MAXSUB=1"): (
+            attn("1"), lambda: F.scaled_dot_product_attention(*split),
+            bounds.packed_attention(n, N, D, heads, 2)),
+    }
+    for (name, what), (kern, library, work) in parts.items():
+        k1, l1, l2, k2 = (cuda_ms(f)[0] for f in (kern, library, library, kern))
+        ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
+        b_ms, b_by = bounds.bound(*work)
+        tflops = work[1] / ms / 1e9
+        entries[name].setdefault("parts", {})[what] = dict(
+            ms=ms, tflops=tflops, bound_ms=b_ms, bound_share=b_ms / ms,
+            library_ms=lib_ms)
+        log(f"time {name} {what} {VIT_SHAPES[0]} bf16: kernel {ms:.4f} ms, "
+            f"{tflops:.1f} TFLOP/s, {b_ms / ms * 100:.1f}% of the bound {b_ms:.4f} ms "
+            f"({b_by}); library {lib_ms:.4f} ms, kernel / library {ms / lib_ms:.2f}")
+    del o_in
 
     # #9 at the partially frozen ViT's trainable tail: every frame of a step
     # (1 clip x 2 views x 240) at once
@@ -882,7 +941,6 @@ def _launch_counters():
             "scl_rowsum": scl.scl_rowsum, "scl_loss_rows": scl.scl_loss_rows,
             "scl_srow": scl.scl_srow, "scl_grad": scl.scl_grad,
             # the micro-benchmarks' kernels: no model path launches them
-            "ln_gemm_ln_once": matmul.ln_matmul_bias_act_ln_once,
             "packed_attn_variant": attention.packed_attention_variant,
             "int8_gemm": int8_matmul.tc_matmul,
             "elementwise_chain": elementwise_chain.elementwise_chain}
@@ -1296,8 +1354,8 @@ def phase_mvf_path(data_root, card):
 
 # kernel-name fragments of the port's ViT kernels (the wrappers' CUDA
 # functions) in a profile
-OWN_KERNELS = {"gemm_bf16_kernel": "ln_gemm (#6, #5's qkv and proj)",
-               "packed_attn_kernel": "packed_attn (#4)",
+OWN_KERNELS = {"ln_gemm_wgmma_kernel": "ln_gemm (#6, #5's qkv and proj)",
+               "packed_attn_wgmma_kernel": "packed_attn (#4)",
                "layernorm_kernel": "layernorm (#8)",
                "flash_fwd_kernel": "flash_attn_fwd (encoder)"}
 
@@ -1677,7 +1735,7 @@ def partial_step_launches(route, frames, chunk=40, depth=12, front=PARTIAL_FRONT
     return {"vit_attention_block": blocks, "packed_attn": blocks,
             "ln_gemm": (2 + gemm) * blocks, "ln_mlp_block": mlp * blocks,
             "matmul_bias_gelu": mm * blocks, "layernorm": ln * blocks + back_runs,
-            "ln_gemm_ln_once": 0, "packed_attn_variant": 0}
+            "packed_attn_variant": 0}
 
 
 def _add(total, counts):
@@ -1849,9 +1907,9 @@ def phase_partial_step_card_vs_cpu(data_root):
 # (row 13), each through its entry point `run("cuda")` at the TPU script's
 # shapes. Every row holds the kernel against its own plain version on the
 # same inputs on the card; the tolerances live beside each tool and are:
-# - the LN-once GEMM (and #6, #8 + #7) against #6's plain version: one bf16
-#   ulp of the largest value (both round the LN output and the activation
-#   at the same points, as #6 is held);
+# - #6 (the rows of both TPU schedules) and #8 + #7 against #6's plain
+#   version: one bf16 ulp of the largest value (both round the LN output
+#   and the activation at the same points, as #6 is held);
 # - each attention variant against its own variant's plain version (its
 #   clamp, exp or exp2, bf16 P, l from rounded or unrounded p, the full-row
 #   max for the max-subtracted forms): two bf16 ulps of the largest output,
@@ -1869,17 +1927,16 @@ def phase_partial_step_card_vs_cpu(data_root):
 TOOLS = ("bench_ln_matmul", "bench_packed_attn", "bench_attn_variants",
          "bench_int8_pallas", "bench_vpu_bf16")
 # kernel entry: (tool, its row whose numbers the kernels line carries)
-TOOL_ENTRIES = {"ln_gemm_ln_once": ("bench_ln_matmul", "scratch (LN once)"),
-                "packed_attn_variant": ("bench_packed_attn", "nomax+exp2"),
+TOOL_ENTRIES = {"packed_attn_variant": ("bench_packed_attn", "nomax+exp2"),
                 "int8_gemm": ("bench_int8_pallas", "int8 (tc_matmul)"),
                 "elementwise_chain": ("bench_vpu_bf16", "fp32 in, fp32 math")}
 
 
 def phase_tools(card):
     """14: each micro-benchmark's `run("cuda")` at the TPU scripts' full
-    shapes, its rows held and printed; returns the new kernels' entries and
-    every kernel's launches over the phase (each tool's check launch and its
-    timed launches)."""
+    shapes, its rows held and printed; returns the tool kernels' entries
+    (and #6's rows under "ln_gemm_tools") and every kernel's launches over
+    the phase (each tool's check launch and its timed launches)."""
     import importlib
 
     from video_rep_learning_tpu_torch.tools import common
@@ -1922,6 +1979,10 @@ def phase_tools(card):
             entries[kernel]["slopes_ms"] = {
                 x["name"]: dict(reps_6_480=x["slope_ms"], spread=x["slope_spread_ms"],
                                 reps_6_48=x["slope_6_48_ms"]) for x in rows[tool]}
+    # rows 13a and 13b: both TPU schedules' rows run #6
+    entries["ln_gemm_tools"] = dict(
+        rows_ms={x["name"]: x["ms"] for x in rows["bench_ln_matmul"]},
+        rows_err={x["name"]: x["err"] for x in rows["bench_ln_matmul"]})
     return entries, launches
 
 
@@ -1932,7 +1993,10 @@ SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
     "crop_photometric": ("csrc/photometric.cu", JAX_OPS + "photometric_pallas.py:218"),
     "photometric": ("csrc/photometric.cu", JAX_OPS + "photometric_pallas.py:208"),
     "layernorm": ("csrc/layernorm.cu", JAX_OPS + "layernorm_pallas.py:36"),
-    "ln_gemm": ("csrc/ln_gemm.cu", JAX_OPS + "matmul_gelu_pallas.py:198"),
+    # also both schedules of the TPU micro-benchmark (rows 13a, 13b):
+    # `build_jouter` and `build_scratch`, whose rows phase 14 runs through #6
+    "ln_gemm": ("csrc/ln_gemm.cu", JAX_OPS + "matmul_gelu_pallas.py:198",
+                ("tools/bench_ln_matmul.py:46", "tools/bench_ln_matmul.py:85")),
     "matmul_bias_gelu": ("csrc/ln_gemm.cu", JAX_OPS + "matmul_gelu_pallas.py:72"),
     "ln_mlp_block": ("csrc/mlp_block.cu", JAX_OPS + "matmul_gelu_pallas.py:341"),
     "packed_attn": ("csrc/packed_attn.cu", JAX_OPS + "attention_pallas.py:485"),
@@ -1942,9 +2006,7 @@ SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
     "scl_loss_rows": ("csrc/scl.cu", JAX_OPS + "scl_pallas.py:122"),
     "scl_srow": ("csrc/scl.cu", JAX_OPS + "scl_pallas.py:151"),
     "scl_grad": ("csrc/scl.cu", JAX_OPS + "scl_pallas.py:176"),
-    # row 13, the TPU micro-benchmarks (phase 14; `build_jouter`,
-    # tools/bench_ln_matmul.py:46, is #6's schedule)
-    "ln_gemm_ln_once": ("csrc/ln_gemm.cu", "tools/bench_ln_matmul.py:85"),
+    # row 13, the TPU micro-benchmarks (phase 14)
     # also bench_packed_attn.py:130 (build_multi), bench_attn_variants.py:108
     "packed_attn_variant": ("csrc/packed_attn_variants.cu",
                             "tools/bench_packed_attn.py:149"),
@@ -1996,9 +2058,10 @@ def main():
     log("model paths: none of " + ", ".join(TOOL_ENTRIES) + " launched")
     torch.cuda.empty_cache()
     tool_entries, tool_launches = phase_tools(card)
+    entries["ln_gemm"].update(tool_entries.pop("ln_gemm_tools"))
     entries.update(tool_entries)
     kernels = []
-    for name, (src, replaces) in SOURCES.items():
+    for name, (src, replaces, *also) in SOURCES.items():
         if name in TOOL_ENTRIES:
             path = "the micro-benchmarks' run('cuda') (phase 14)"
             launches = tool_launches[name]
@@ -2020,6 +2083,7 @@ def main():
             "name": name, "route": "cuda",
             "source": f"video_rep_learning_tpu_torch/{src}",
             "replaces": replaces,
+            **({"also_replaces": list(also[0])} if also else {}),
             "launches": launches, "path": path,
             "eval_launches": eval_launches if name == "flash_attn_fwd" else 0,
             "mvf_eval_launches": mvf_launches[name],
@@ -2030,7 +2094,8 @@ def main():
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
             "host_ms": e["host_ms"],
             **{k: v for k, v in e.items() if k.endswith("_480")
-               or k in ("row", "rows_ms", "rows_err", "rows_ms_b160", "slopes_ms")}})
+               or k in ("row", "rows_ms", "rows_err", "rows_ms_b160", "slopes_ms",
+                        "parts")}})
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 SSL crop+photometric and photometric kernels, the ViT's LayerNorm,
 LN + matmul, packed attention, attention half-block, matmul + GELU and the
 whole MLP half-block, and the four passes of the fused SCL loss; and the
-kernels of the H100 micro-benchmarks: the LN-once GEMM, the packed-attention
-variants, the int8 / bf16 tensor-core GEMM and the elementwise chain) against
+kernels of the H100 micro-benchmarks: the packed-attention variants, the
+int8 / bf16 tensor-core GEMM and the elementwise chain) against
 their plain PyTorch versions; the ViT kernels' gradients (the kernel
 forward, the plain backward chunked over frames) against autograd of the
 plain versions; the JAX package's MLP gates reaching their kernels; and the
@@ -306,6 +306,65 @@ def test_vit_attention_block_rejects_bad_input(cuda):
                                       torch.zeros(384, device=cuda), wp, ones, 2)
 
 
+# the tensor-core kernels of #4 and #6 (bf16) at every shape their wrappers
+# take on the model paths and the edges of their tiling
+ATTN_FORMS = {"max-free": "0", "maxsub": "1"}
+
+
+@pytest.mark.parametrize("form", list(ATTN_FORMS))
+@pytest.mark.parametrize("B", [1, 7, 40])
+@pytest.mark.parametrize("N", [785, 17, 64])
+@pytest.mark.parametrize("dh", [32, 64])
+def test_packed_attention_bf16_forms_match_plain(cuda, monkeypatch, dh, N, B, form):
+    heads = 256 // dh
+    monkeypatch.setenv("VRL_ATTN_MAXSUB", ATTN_FORMS[form])
+    g = torch.Generator(device=cuda).manual_seed(15)
+    qkv = torch.randn(B, N, 3 * heads * dh, generator=g, device=cuda).bfloat16()
+    before = attention.packed_vit_attention.launches
+    got = attention.packed_vit_attention(qkv, heads)
+    torch.cuda.synchronize()
+    assert attention.packed_vit_attention.launches == before + 1
+    want = attention.packed_attention_reference(qkv, heads)
+    # two bf16 ulps of the largest output, not floored at 1: the kernel
+    # rounds p unnormalised (against the running max with maxsub), the plain
+    # version normalised, and each rounds the output once
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    assert err <= 2 * 2.0 ** -7 * want.float().abs().max().item(), (form, err)
+
+
+# (activation, residual, LN): each activation with and without the residual
+# under the LN, and the two LN-off forms the model runs (proj + residual, #7)
+GEMM_EPILOGUES = [(act, res, True) for act in ("none", "gelu_exact", "gelu_tanh")
+                  for res in (False, True)] + [("none", True, False),
+                                               ("gelu_exact", False, False)]
+
+
+@pytest.mark.parametrize("M", [1, 63, 31400])
+@pytest.mark.parametrize("F", [128, 768, 2304, 3072])
+@pytest.mark.parametrize("K", [384, 768, 1024, 1536])
+def test_ln_matmul_bf16_shapes_match_plain(cuda, K, F, M):
+    g = torch.Generator(device=cuda).manual_seed(16)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=cuda)
+
+    x = (r(M, K) * 2 + 0.5).bfloat16()
+    ln_s, ln_b = 1 + 0.1 * r(K), 0.1 * r(K)
+    w, b = (r(F, K) * K ** -0.5).bfloat16(), 0.1 * r(F)
+    res = r(M, F).bfloat16()
+    for act, with_res, ln in GEMM_EPILOGUES:
+        args = (x, ln_s if ln else None, ln_b if ln else None, w, b, act)
+        residual = res if with_res else None
+        before = matmul.ln_matmul_bias_act.launches
+        got = matmul.ln_matmul_bias_act(*args, residual=residual)
+        torch.cuda.synchronize()
+        assert matmul.ln_matmul_bias_act.launches == before + 1
+        want = matmul.ln_matmul_bias_act_reference(*args, residual=residual)
+        _assert_vit("mm", torch.bfloat16, got, want)
+
+
 @pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("shape", VIT_SHAPES, ids=str)
@@ -506,16 +565,18 @@ def test_scl_rejects_bad_input(cuda):
                      torch.zeros(64, 3, device=cuda), **kw)
 
 
-# the micro-benchmark kernels: one small and one ragged shape each
+# the micro-benchmark kernels: one small and one ragged shape each. Both
+# schedules of tools/bench_ln_matmul.py run #6 (its kernel normalises each
+# row panel once), so the LN-once case is #6 at the script's bf16
 @pytest.mark.parametrize("shape,F", [((1, 64, 128), 128), ((2, 100, 768), 384)],
                          ids=str)
 def test_ln_matmul_ln_once_matches_plain(cuda, shape, F):
-    dtype = torch.bfloat16  # the LN-once kernel's only type
+    dtype = torch.bfloat16  # the TPU script's type
     x, ln_s, ln_b, w, b = _vit_inputs(cuda, shape, dtype, 11, F=F)
-    before = matmul.ln_matmul_bias_act_ln_once.launches
-    got = matmul.ln_matmul_bias_act_ln_once(x, ln_s, ln_b, w, b, "gelu_exact")
+    before = matmul.ln_matmul_bias_act.launches
+    got = matmul.ln_matmul_bias_act(x, ln_s, ln_b, w, b, "gelu_exact")
     torch.cuda.synchronize()
-    assert matmul.ln_matmul_bias_act_ln_once.launches == before + 1
+    assert matmul.ln_matmul_bias_act.launches == before + 1
     want = matmul.ln_matmul_bias_act_reference(x, ln_s, ln_b, w, b, "gelu_exact")
     _assert_vit("mm", dtype, got, want)
 
@@ -599,11 +660,13 @@ def test_micro_benchmark_kernels_reject_bad_input(cuda):
     with pytest.raises(TypeError, match="math"):
         elementwise_chain.elementwise_chain(torch.zeros(8, device=cuda), 2,
                                             torch.bfloat16)
-    x, ln_s, ln_b, w, b = _vit_inputs(cuda, (1, 64, 128), torch.float32, 11, F=128)
-    with pytest.raises(TypeError, match="bf16"):
-        matmul.ln_matmul_bias_act_ln_once(x, ln_s, ln_b, w, b, "gelu_exact")
-    x = torch.zeros(2, 8, 1408, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="K <= 1376"):
-        matmul.ln_matmul_bias_act_ln_once(
-            x, None, None, torch.zeros(128, 1408, device=cuda, dtype=torch.bfloat16),
+    # #6's bf16 kernel: a misaligned x (its 16 B loads), K past its panel
+    _, ln_s, ln_b, w, b = _vit_inputs(cuda, (1, 64, 128), torch.bfloat16, 11, F=128)
+    x = torch.zeros(64 * 128 + 4, device=cuda, dtype=torch.bfloat16)[4:].view(1, 64, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        matmul.ln_matmul_bias_act(x, ln_s, ln_b, w, b, "gelu_exact")
+    x = torch.zeros(2, 8, 1568, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K <= 1536"):
+        matmul.ln_matmul_bias_act(
+            x, None, None, torch.zeros(128, 1568, device=cuda, dtype=torch.bfloat16),
             torch.zeros(128, device=cuda))

@@ -38,7 +38,8 @@ from video_rep_learning_tpu.ops import matmul_gelu_pallas as jax_mm
 from video_rep_learning_tpu.ops import vit_block_pallas as jax_vb
 from video_rep_learning_tpu_torch.models import vit as port_vit
 from video_rep_learning_tpu_torch.ops.attention import (
-    packed_attention_reference, packed_vit_attention)
+    attention_maxsub, packed_attention_reference, packed_attn_args,
+    packed_vit_attention)
 from video_rep_learning_tpu_torch.ops.layernorm import (fused_layernorm,
                                                         layernorm_reference)
 from video_rep_learning_tpu_torch.ops.matmul import (
@@ -129,6 +130,25 @@ def test_packed_attention_plain_matches_pallas(tpu_interpret, dtype, N):
     got = packed_vit_attention(_port(qkv, dtype), HEADS)
     assert got.dtype == DTYPES[dtype][0] and got.shape == (3, N, D)
     _check("attn", dtype, got, want)
+
+
+@pytest.mark.parametrize("value", [None, "0", "1", "true"])
+def test_packed_attention_reads_maxsub_at_call_time(monkeypatch, value):
+    """The bf16 kernel's softmax form follows VRL_ATTN_MAXSUB as the JAX
+    package's `_use_maxsub` reads it, at each call: the launch arguments
+    built for a call carry the value set just before it."""
+    if value is None:
+        monkeypatch.delenv("VRL_ATTN_MAXSUB", raising=False)
+    else:
+        monkeypatch.setenv("VRL_ATTN_MAXSUB", value)
+    assert attention_maxsub() == jax_attn._use_maxsub()
+    qkv = torch.zeros(2, 5, 3 * D, dtype=torch.bfloat16)
+    out = torch.empty(2, 5, D, dtype=torch.bfloat16)
+    args = packed_attn_args(qkv, out, HEADS)
+    assert args[2:] == (2, HEADS, 5, D // HEADS, 1, int(value == "1"),
+                        (D // HEADS) ** -0.5)
+    monkeypatch.setenv("VRL_ATTN_MAXSUB", "0" if value == "1" else "1")
+    assert packed_attn_args(qkv, out, HEADS)[7] == int(value != "1")
 
 
 def _block_args(rng, N):

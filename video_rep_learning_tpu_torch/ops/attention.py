@@ -10,9 +10,11 @@ backward). The kernels are `csrc/flash_attn_fwd.cu` and
 saves its output and LSE, and its backward runs the backward kernel.
 `packed_vit_attention` is the counterpart of that module's
 `packed_vit_attention` (`_packed_kernel`); its kernel is
-`csrc/packed_attn.cu`, and its backward, as the JAX package's custom_vjp
-(`attention_pallas.py:572`), is autograd of the plain version chunked over
-frames (`ops/plain_grad.py`).
+`csrc/packed_attn.cu` (bf16 on the tensor cores, in the TPU kernel's
+max-free softmax unless VRL_ATTN_MAXSUB=1, read at each call as the JAX
+package reads it; fp32 on the CUDA cores), and its backward, as the JAX
+package's custom_vjp (`attention_pallas.py:572`), is autograd of the plain
+version chunked over frames (`ops/plain_grad.py`).
 `packed_attention_variant` computes the same attention in each form the
 TPU micro-benchmarks compare (`tools/bench_packed_attn.py`,
 `tools/bench_attn_variants.py`: exp2, the max-free softmax, P rounded to
@@ -31,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
 
 import torch
 
@@ -247,6 +250,23 @@ def packed_attention_reference(qkv, num_heads):
     return out.transpose(1, 2).reshape(B, N, D)
 
 
+def attention_maxsub():
+    """The JAX package's switch (`attention_pallas._use_maxsub`), read when
+    called: VRL_ATTN_MAXSUB=1 takes the max-subtracted softmax in the bf16
+    kernel, anything else the TPU kernel's max-free one."""
+    return os.environ.get("VRL_ATTN_MAXSUB", "0") == "1"
+
+
+def packed_attn_args(qkv, out, num_heads):
+    """The arguments of csrc/packed_attn.cu's `vrl_packed_attn` after the
+    stream: qkv and out pointers, B, heads, N, dh, the dtype code, the
+    softmax form (`attention_maxsub()` at this call) and the scale."""
+    B, N, three_d = qkv.shape
+    dh = three_d // 3 // num_heads
+    return (qkv.data_ptr(), out.data_ptr(), B, num_heads, N, dh,
+            _DTYPE_CODES[qkv.dtype], int(attention_maxsub()), float(dh ** -0.5))
+
+
 def _packed_vit_attention(qkv, num_heads):
     if not use_kernel("packed_vit_attention", qkv):
         return packed_attention_reference(qkv, num_heads)
@@ -263,15 +283,16 @@ def _packed_vit_attention(qkv, num_heads):
                          f"{HEAD_DIMS}")
     if B > 65535 or num_heads > 65535:
         raise ValueError(f"grid too large: B={B}, heads={num_heads}")
+    if qkv.data_ptr() % 16:  # the bf16 kernel's TMA tensor map
+        raise ValueError("qkv must be 16-byte aligned")
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
     if B == 0 or N == 0:
         return out
     fn = cuda_build.kernel_fn("packed_attn", "vrl_packed_attn",
-                              (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 5
+                              (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 6
                               + (ctypes.c_float, ctypes.c_void_p))
     with torch.cuda.device(qkv.device):
-        err = fn(qkv.data_ptr(), out.data_ptr(), B, num_heads, N, dh,
-                 _DTYPE_CODES[qkv.dtype], float(dh ** -0.5),
+        err = fn(*packed_attn_args(qkv, out, num_heads),
                  torch.cuda.current_stream(qkv.device).cuda_stream)
     cuda_build.check_launch("packed_attn", err)
     packed_vit_attention.launches += 1
@@ -280,10 +301,11 @@ def _packed_vit_attention(qkv, num_heads):
 
 def packed_vit_attention(qkv, num_heads, grad_chunk=None):
     """Self-attention straight from the packed (B, N, 3D) qkv, returning
-    (B, N, D); see `packed_attention_reference` for the math. CUDA tensors go
-    through the kernel (no head transposes, no copies), CPU tensors through
-    the plain version. `packed_vit_attention.launches` counts kernel
-    launches."""
+    (B, N, D); see `packed_attention_reference` for the math (the bf16
+    kernel's max-free softmax is the same function for logits within its
+    clamp; `attention_maxsub`). CUDA tensors go through the kernel (no head
+    transposes, no copies), CPU tensors through the plain version.
+    `packed_vit_attention.launches` counts kernel launches."""
     return with_plain_grad(_packed_vit_attention, packed_attention_reference,
                            (qkv, num_heads), batched=(0,), chunk=grad_chunk)
 

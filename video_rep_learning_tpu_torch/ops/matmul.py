@@ -5,7 +5,9 @@ them by the device of the tensors.
 
 Counterpart of `video_rep_learning_tpu/ops/matmul_gelu_pallas.py`:
 - `ln_matmul_bias_act` (`_kernel_ln`, #6; plain `_reference_ln`): the
-  kernel is `csrc/ln_gemm.cu`;
+  kernel is `csrc/ln_gemm.cu` (bf16: wgmma on a persistent grid, each 64-row
+  panel normalised once; fp32: fp32 FMA). It is also the port of both
+  schedules of the TPU micro-benchmark tools/bench_ln_matmul.py;
 - `matmul_bias_gelu` (`_kernel`, #7; plain `_reference`): the same
   `csrc/ln_gemm.cu` with the LN off and the erf or tanh GELU epilogue. The
   TPU kernel is that product with that epilogue, so this is its port; it
@@ -13,11 +15,6 @@ Counterpart of `video_rep_learning_tpu/ops/matmul_gelu_pallas.py`:
 - `ln_mlp_block` (`_kernel_mlp`, #9; plain `_reference_mlp`): x +
   act(LN(x) W1^T + b1) W2^T + b2 in one launch of `csrc/mlp_block.cu`,
   whose (rows, 4D) activation never reaches device memory.
-- `ln_matmul_bias_act_ln_once`: #6's function in the LN-once schedule of
-  the TPU micro-benchmark `_kernel_scratch` (tools/bench_ln_matmul.py:67):
-  `csrc/ln_gemm.cu`'s second entry, each row panel normalised once and
-  reused by every column tile. Its plain version is #6's. No model path
-  takes it; the port's `tools/bench_ln_matmul.py` times it against #6.
 
 Weights are nn.Linear's (out, in) matrices, in the activation's type; the
 LN parameters and the biases are fp32. The rounding points are the TPU
@@ -50,10 +47,9 @@ from .plain_grad import use_kernel, with_plain_grad
 
 ACTIVATIONS = {"none": 0, "gelu_exact": 1, "gelu_tanh": 2}
 K_MULTIPLE, F_MULTIPLE, MAX_K = 32, 128, 1536  # csrc/ln_gemm.cu's tiling
-MAX_ROW_BLOCKS = 65535  # the grid's y extent, in blocks of 64 (bf16) or 32 rows
-# the LN-once schedule keeps the A panel and a separate epilogue stage in
-# 227 KB: 128 (K + 8) + 54,272 bytes in bf16
-LN_ONCE_MAX_K = 1376
+# the fp32 kernel's grid y extent, in blocks of 32 rows (bf16 runs a
+# persistent grid)
+MAX_ROW_BLOCKS = 65535
 # csrc/mlp_block.cu: K (the model width) a multiple of 128 up to 768, F of 64
 MLP_K_MULTIPLE, MLP_MAX_K, MLP_F_MULTIPLE = 128, 768, 64
 
@@ -81,8 +77,7 @@ def ln_matmul_bias_act_reference(x, ln_scale, ln_bias, w, b,
     return y.to(x.dtype)
 
 
-def _check_cuda_inputs(x, ln_scale, ln_bias, w, b, activation, residual,
-                       max_k=MAX_K):
+def _check_cuda_inputs(x, ln_scale, ln_bias, w, b, activation, residual):
     check_activation("x", x)
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation {activation!r} not in {sorted(ACTIVATIONS)}")
@@ -90,8 +85,8 @@ def _check_cuda_inputs(x, ln_scale, ln_bias, w, b, activation, residual,
     if w.dim() != 2 or w.shape[1] != K:
         raise ValueError(f"w must be (F, {K}), got {tuple(w.shape)}")
     Fo = w.shape[0]
-    if K % K_MULTIPLE or K > max_k or Fo % F_MULTIPLE or Fo == 0:
-        raise ValueError(f"the kernel takes K % {K_MULTIPLE} == 0, K <= {max_k} "
+    if K % K_MULTIPLE or K > MAX_K or Fo % F_MULTIPLE or Fo == 0:
+        raise ValueError(f"the kernel takes K % {K_MULTIPLE} == 0, K <= {MAX_K} "
                          f"and F % {F_MULTIPLE} == 0; got K={K}, F={Fo}")
     if w.dtype != x.dtype or w.device != x.device or not w.is_contiguous():
         raise ValueError(f"w must be contiguous {x.dtype} on {x.device}, got "
@@ -113,21 +108,23 @@ def _check_cuda_inputs(x, ln_scale, ln_bias, w, b, activation, residual,
                          f"{x.dtype} on {x.device}, got {tuple(residual.shape)} "
                          f"{residual.dtype} on {residual.device}")
     rows = x.numel() // K
-    if -(-rows // (64 if x.dtype == torch.bfloat16 else 32)) > MAX_ROW_BLOCKS:
+    if x.dtype == torch.float32 and -(-rows // 32) > MAX_ROW_BLOCKS:
         raise ValueError(f"{rows} rows exceed the kernel's grid")
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or (
+            residual is not None and residual.data_ptr() % 16)):
+        raise ValueError("bf16 x and residual must be 16-byte aligned")
     return rows, K, Fo, out_shape
 
 
-def _ln_gemm_launch(x, ln_scale, ln_bias, w, b, activation, residual, eps,
-                    symbol="vrl_ln_gemm", max_k=MAX_K):
-    """One launch of csrc/ln_gemm.cu's entry `symbol` on CUDA tensors
-    (counted by the caller)."""
+def _ln_gemm_launch(x, ln_scale, ln_bias, w, b, activation, residual, eps):
+    """One launch of csrc/ln_gemm.cu on CUDA tensors (counted by the
+    caller)."""
     rows, K, Fo, out_shape = _check_cuda_inputs(x, ln_scale, ln_bias, w, b,
-                                                activation, residual, max_k)
+                                                activation, residual)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if rows == 0:
         return out
-    fn = cuda_build.kernel_fn("ln_gemm", symbol,
+    fn = cuda_build.kernel_fn("ln_gemm", "vrl_ln_gemm",
                               (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5
                               + (ctypes.c_float, ctypes.c_void_p))
     with torch.cuda.device(x.device):
@@ -165,28 +162,6 @@ def ln_matmul_bias_act(x, ln_scale, ln_bias, w, b, activation="none",
 
 
 ln_matmul_bias_act.launches = 0
-
-
-def ln_matmul_bias_act_ln_once(x, ln_scale, ln_bias, w, b, activation="none",
-                               residual=None, eps=1e-6):
-    """`ln_matmul_bias_act`'s function (same arguments, same plain version)
-    in the LN-once schedule: a bf16 CUDA tensor launches csrc/ln_gemm.cu's
-    `vrl_ln_gemm_ln_once` (K <= LN_ONCE_MAX_K) or raises, a CPU tensor takes
-    the plain version. It records no gradient.
-    `ln_matmul_bias_act_ln_once.launches` counts its launches."""
-    if not use_kernel("ln_matmul_bias_act_ln_once", x, ln_scale, ln_bias, w, b,
-                      residual):
-        return ln_matmul_bias_act_reference(x, ln_scale, ln_bias, w, b,
-                                            activation, residual, eps)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the LN-once kernel takes bf16, got {x.dtype}")
-    out = _ln_gemm_launch(x, ln_scale, ln_bias, w, b, activation, residual, eps,
-                          "vrl_ln_gemm_ln_once", LN_ONCE_MAX_K)
-    ln_matmul_bias_act_ln_once.launches += 1
-    return out
-
-
-ln_matmul_bias_act_ln_once.launches = 0
 
 
 def _gelu_name(approximate):

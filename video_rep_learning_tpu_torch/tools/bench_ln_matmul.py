@@ -2,20 +2,21 @@
 schedules of the TPU script `tools/bench_ln_matmul.py`, on the H100:
 
 - jouter: the LN prologue recomputed for every weight column tile
-  (`_kernel_jouter`, the (nJ, B) grid): the port's #6,
-  `ln_matmul_bias_act`, whose blocks each normalise their 64 rows for one
-  128-column tile. It is also the TPU script's "shipped" row;
+  (`_kernel_jouter`, the (nJ, B) grid). It is also the TPU script's
+  "shipped" row;
 - scratch: the LN once per image, every column tile reusing it
-  (`_kernel_scratch`, the (B, nJ) grid with VMEM scratch): the port's
-  `ln_matmul_bias_act_ln_once`, one block normalising its 64 rows once and
-  walking all 24 column tiles;
+  (`_kernel_scratch`, the (B, nJ) grid with VMEM scratch);
 - #8 + #7: a separate LayerNorm pass, then the matmul + GELU kernel.
 
-Each against the plain version (the LN rounded to bf16, the product summed
-in fp32, the bias and GELU in fp32, rounded once), beside the library
-composition `layer_norm + linear + gelu` in bf16 and the bound. The TPU
-script's chained `fori_loop` and overhead calibration are not carried
-over: CUDA events time the launches themselves (`common.py`).
+Both TPU schedules compute the same function, and both rows run the port's
+#6, `ln_matmul_bias_act`: its H100 kernel (csrc/ln_gemm.cu) normalises
+each 64-row panel once into shared memory and walks every column tile
+from it, whatever the TPU schedule was, so there is no second schedule to
+time. Each row against the plain version (the LN rounded to bf16, the
+product summed in fp32, the bias and GELU in fp32, rounded once), beside
+the library composition `layer_norm + linear + gelu` in bf16 and the bound.
+The TPU script's chained `fori_loop` and overhead calibration are not
+carried over: CUDA events time the launches themselves (`common.py`).
 
     python -m video_rep_learning_tpu_torch.tools.bench_ln_matmul [--device cpu]
 """
@@ -28,8 +29,8 @@ import torch.nn.functional as F
 
 from ..ops import bounds
 from ..ops.layernorm import fused_layernorm
-from ..ops.matmul import (ln_matmul_bias_act, ln_matmul_bias_act_ln_once,
-                          ln_matmul_bias_act_reference, matmul_bias_gelu)
+from ..ops.matmul import (ln_matmul_bias_act, ln_matmul_bias_act_reference,
+                          matmul_bias_gelu)
 from . import common
 
 B, N, K, FO = 40, 785, 768, 3072  # a 40-frame chunk, 785 tokens, fc1 768 -> 3072
@@ -58,8 +59,7 @@ def run(device="cuda", B=B, N=N, K=K, F=FO, reps=20):
     gb, beb, bb = g.bfloat16(), be.bfloat16(), b.bfloat16()
     variants = {
         "jouter (#6)": lambda: ln_matmul_bias_act(x, g, be, w, b, "gelu_exact"),
-        "scratch (LN once)": lambda: ln_matmul_bias_act_ln_once(x, g, be, w, b,
-                                                                "gelu_exact"),
+        "scratch (#6)": lambda: ln_matmul_bias_act(x, g, be, w, b, "gelu_exact"),
         "#8 + #7": lambda: matmul_bias_gelu(fused_layernorm(x, g, be), w, b),
     }
     rows = []
