@@ -10,7 +10,8 @@ with the CPU on each.
 Phases (any failure exits non-zero, and no result line is printed):
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: nvcc builds every `video_rep_learning_tpu_torch/csrc/*.cu`, one
-   compiler per source, all at once;
+   compiler per source, all at once; each kernel's registers, stack and
+   spills as ptxas reports them (#9's go into the `kernels` line);
 3. kernel vs plain, and times beside the plain version, the bound and the
    library call where there is one:
    - flash-attention forward and backward in fp32 and bf16 at the CARL
@@ -22,7 +23,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      activation and with the residual epilogue, packed attention in both
      softmax forms, the attention half-block, matmul + GELU, the LN-MLP
      half-block) in fp32 and bf16 at the MV-Former chunk (40 x 785 x 768)
-     and a ragged last chunk (7 frames); the block's three GEMMs and both
+     and a ragged last chunk (7 frames), the LN-MLP half-block also in bf16
+     at the trainable tail's 480 frames; the block's three GEMMs and both
      attention forms timed with their TFLOP/s, bound share and library
      ratio;
 4. eval path: `python -m video_rep_learning_tpu_torch.evaluate`'s function on
@@ -42,7 +44,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    `configs_mvf/pouring_mvf.yml` (fully frozen ViT-B/8 at 224 px, bf16, 3
    LSTP tokens, a 3-layer encoder; seeded weights saved as a checkpoint)
    over the synthetic set; checks the ViT kernels' and the encoder's
-   launches and the embeddings; reports warm frames/s; then 16 frames of
+   launches and the embeddings; reports warm frames/s, and again with the
+   MLP half-block on #9 (VRL_FUSED_MLP=1: exactly one `ln_mlp_block` launch
+   a block and chunk, the embeddings checked likewise); then 16 frames of
    one video in fp32, card vs CPU;
 8. the fused SCL kernels (#10, four passes) against their plain versions at
    N = 480, 8640 and 308 frames, single_noself and batch_noself; times,
@@ -245,12 +249,30 @@ def phase_build():
     with ThreadPoolExecutor(len(names)) as ex:
         libs = dict(zip(names, ex.map(cuda_build.build, names)))
     log(f"build {', '.join(names)}: {time.time() - t0:.2f} s in parallel")
+    logs = {}
     for name, so in libs.items():
         log_path = so.with_name(so.name + ".log")
         if log_path.exists():
-            for line in log_path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+            logs[name] = log_path.read_text()
+            for line in logs[name].splitlines():
+                if ("Compiling entry function" in line or "registers" in line
+                        or "spill" in line):
                     log(f"  ptxas {name}: " + line.strip())
+    return mlp_wgmma_ptxas(logs.get("mlp_block", ""))
+
+
+def mlp_wgmma_ptxas(text):
+    """#9's wgmma kernel as built, one instance per activation: registers,
+    stack frame and spill bytes from the `-Xptxas -v` lines after its
+    entry."""
+    import re
+
+    return {f"mlp_wgmma_kernel<{m[0]}>": dict(
+        registers=int(m[4]), stack=int(m[1]), spill_stores=int(m[2]),
+        spill_loads=int(m[3])) for m in re.findall(
+        r"Compiling entry function '[^']*mlp_wgmma_kernelILi(\d)E[^']*'.*?"
+        r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+        r"spill loads.*?Used (\d+) registers", text, re.S)}
 
 
 def make_synthetic_set():
@@ -718,12 +740,29 @@ def phase_vit_kernels():
     gc = torch.Generator(device="cuda").manual_seed(SEED + 3)
     big = dict(a, x=(torch.randn(frames, N, D, generator=gc, device="cuda") * 2
                      + 0.5).bfloat16())
+    # checked against plain at this M first: a block of the persistent
+    # kernel walks ~45 panels here, against ~4 at the chunk
+    got = ln_mlp_block(*mlp_args(big), "gelu_exact")
+    torch.cuda.synchronize()
+    want = ln_mlp_block_reference(*mlp_args(big), "gelu_exact")
+    err = (got.float() - want.float()).abs().max().item()
+    tol = (VIT_BF16_ULPS["ln_mlp_block"] * 2.0 ** -7
+           * max(1.0, want.float().abs().max().item()))
+    ok = (err <= tol and got.shape == want.shape and got.dtype == want.dtype
+          and bool(torch.isfinite(got.float()).all()))
+    log(f"kernel vs plain ln_mlp_block bfloat16 ({frames}, {N}, {D}) LN2 + fc1 + "
+        f"gelu_exact + fc2 + residual: err {err:.3e} (tol {tol:.2e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"ln_mlp_block disagrees at ({frames}, {N}, {D}) bf16")
+    del got, want
     ms, plain_ms, lib_ms, _ = timed(lambda: ln_mlp_block(*mlp_args(big)),
                                  lambda: ln_mlp_block_reference(*mlp_args(big)),
                                  lambda: library_mlp(big["x"]), reps=3)
     b_ms, b_by = bounds.bound(*bounds.mlp_block(frames * N, D, 4 * D, 2))
     entries["ln_mlp_block"].update(ms_480=ms, plain_ms_480=plain_ms,
-                                   bound_ms_480=b_ms, library_ms_480=lib_ms)
+                                   bound_ms_480=b_ms, library_ms_480=lib_ms,
+                                   max_abs_err_480=err)
     log(f"time ln_mlp_block ({frames}, {N}, {D}) bf16: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library {lib_ms:.4f} ms")
     return entries
@@ -1348,8 +1387,48 @@ def phase_mvf_path(data_root, card):
     log(f"MV-Former embedding sweep (val, warm, bf16 ViT-B/8, {frames} frames "
         f"of 256x256 uint8 -> 224 px): {frames / dt:.1f} frames/s in {dt:.3f} s "
         f"on {card}")
+    fused = mvf_fused_mlp_sweep(cfg, model, loader, out, card)
     phase_mvf_profile(cfg, model, next(iter(loader)))
-    return launches, logdir
+    return launches, logdir, fused
+
+
+def mvf_fused_mlp_sweep(cfg, model, loader, default, card):
+    """The same warm sweep with the MLP half-block on #9 (VRL_FUSED_MLP=1:
+    one `ln_mlp_block` launch a block and chunk in place of #6's fc1 and
+    fc2): its frames/s beside the default route's, its exact launches, and
+    its embeddings (finite, unit norm, one a frame; their largest distance
+    from the default route's is logged: the two routes round fc2's input
+    at different points)."""
+    from video_rep_learning_tpu_torch.evaluation import get_embeddings_dataset
+
+    with env_vars(VRL_FUSED_MLP="1"):
+        get_embeddings_dataset(cfg, model, loader, "cuda")  # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.time()
+        out = get_embeddings_dataset(cfg, model, loader, "cuda")
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = _read_launches()
+    chunks, blocks = launches["layernorm"], launches["vit_attention_block"]
+    if (chunks <= 0 or blocks != 12 * chunks or launches["ln_mlp_block"] != blocks
+            or launches["ln_gemm"] != 2 * blocks):
+        raise AssertionError(f"VRL_FUSED_MLP=1 sweep: launches do not follow the "
+                             f"ViT's blocks: {launches}")
+    embs, want = np.concatenate(out["embs"]), np.concatenate(default["embs"])
+    frames = sum(out["seq_lens"])
+    norm_err = float(np.abs(np.linalg.norm(embs, axis=1) - 1).max())
+    if (embs.shape != want.shape or embs.shape[0] != frames
+            or not np.isfinite(embs).all() or norm_err > 1e-4):
+        raise AssertionError(f"VRL_FUSED_MLP=1 sweep: bad embeddings {embs.shape}, "
+                             f"|norm - 1| up to {norm_err}")
+    diff = float(np.abs(embs - want).max())
+    log(f"MV-Former embedding sweep under VRL_FUSED_MLP=1 (val, warm, {frames} "
+        f"frames): {frames / dt:.1f} frames/s in {dt:.3f} s on {card}; "
+        f"ln_mlp_block {launches['ln_mlp_block']} launches ({chunks} chunks x 12), "
+        f"max |norm - 1| {norm_err:.2e}, max |emb - default route's| {diff:.3e}")
+    return dict(frames_per_s=frames / dt, launches=launches["ln_mlp_block"],
+                chunks=chunks, max_abs_diff_default=diff)
 
 
 # kernel-name fragments of the port's ViT kernels (the wrappers' CUDA
@@ -1867,7 +1946,7 @@ def phase_partial_train_path(data_root, card):
             f"{clips} clip x 2 views x {trainer.cfg.TRAIN.NUM_FRAMES} frames of 256x256 "
             f"uint8 -> 224 px): {step_ms:.1f} ms/step, {clips / step_ms * 1e3:.3f} "
             f"clips/s on {card}; losses {losses}")
-        own = dict(OWN_KERNELS, mlp_bf16_kernel="ln_mlp_block (#9)",
+        own = dict(OWN_KERNELS, mlp_wgmma_kernel="ln_mlp_block (#9)",
                    dkdv_kernel="flash_attn_bwd dk/dv", dq_kernel="flash_attn_bwd dq",
                    photometric_kernel="crop_photometric")
         profile_train_step(trainer, batch, "partial ViT", "partial_train_step_trace.json",
@@ -2020,13 +2099,15 @@ def main():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only "
                  "on the GPU")
     card = phase_environment()
-    phase_build()
+    ptxas = phase_build()
     data_root, lens = make_synthetic_set()
     fwd_err = phase_kernel_vs_plain(lens)
     entries = phase_attention_backward()
     entries["flash_attn_fwd"]["max_abs_err"] = fwd_err
     entries.update(phase_augment())
     entries.update(phase_vit_kernels())
+    # #9 as built: registers and spills of its wgmma kernel (one per activation)
+    entries["ln_mlp_block"]["ptxas"] = ptxas
     phase_vit_grads()
     entries.update(phase_scl_kernels())
     eval_launches = phase_main_path(data_root, card)
@@ -2035,7 +2116,8 @@ def main():
     phase_profile(trainer, batch)
     del trainer, batch
     step_launches = phase_step_card_vs_cpu(data_root)
-    mvf_launches, mvf_logdir = phase_mvf_path(data_root, card)
+    mvf_launches, mvf_logdir, fused_sweep = phase_mvf_path(data_root, card)
+    entries["ln_mlp_block"]["mvf_eval_fused_mlp"] = fused_sweep
     phase_card_vs_cpu(data_root, mvf_logdir, MVF_CFG_FILE, MVF_CARD_VS_CPU,
                       "MV-Former")
     torch.cuda.empty_cache()
@@ -2095,7 +2177,7 @@ def main():
             "host_ms": e["host_ms"],
             **{k: v for k, v in e.items() if k.endswith("_480")
                or k in ("row", "rows_ms", "rows_err", "rows_ms_b160", "slopes_ms",
-                        "parts")}})
+                        "parts", "ptxas", "mvf_eval_fused_mlp")}})
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

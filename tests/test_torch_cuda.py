@@ -378,14 +378,23 @@ def test_matmul_bias_gelu_matches_plain(cuda, shape, dtype, approximate):
     _assert_vit("mm", dtype, got, matmul.matmul_bias_gelu_reference(x, w, b, approximate))
 
 
-@pytest.mark.parametrize("activation", ["gelu_exact", "gelu_tanh"])
+# #9 at the ViT shapes (F = 4 K), then where its tiling breaks first: rows
+# below one 64-row panel and not a multiple of 64, K 384 (ViT-S: three
+# 64-column fc2 blocks a warpgroup) beside 768 and 128, and F a multiple of
+# 64 but not of 128
+MLP_SHAPES = [(shape, 4 * shape[-1]) for shape in VIT_SHAPES] + [
+    ((1, 1, 768), 3072), ((1, 50, 768), 3072), ((1, 100, 384), 1536),
+    ((3, 43, 384), 192), ((2, 17, 128), 192), ((1, 130, 768), 192)]
+
+
+@pytest.mark.parametrize("activation", ["none", "gelu_exact", "gelu_tanh"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("shape", VIT_SHAPES, ids=str)
-def test_ln_mlp_block_matches_plain(cuda, shape, dtype, activation):
-    x, ln_s, ln_b, w1, b1 = _vit_inputs(cuda, shape, dtype, 9)
+@pytest.mark.parametrize("shape,F", MLP_SHAPES, ids=str)
+def test_ln_mlp_block_matches_plain(cuda, shape, F, dtype, activation):
+    x, ln_s, ln_b, w1, b1 = _vit_inputs(cuda, shape, dtype, 9, F)
     g = torch.Generator().manual_seed(10)
     D = shape[-1]
-    w2 = (torch.randn(D, 4 * D, generator=g) * (4 * D) ** -0.5).to(cuda, dtype)
+    w2 = (torch.randn(D, F, generator=g) * F ** -0.5).to(cuda, dtype)
     b2 = (0.1 * torch.randn(D, generator=g)).to(cuda)
     before = matmul.ln_mlp_block.launches
     got = matmul.ln_mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, activation)

@@ -286,3 +286,35 @@ def test_launch_with_grad_outside_the_function_raises():
     with torch.no_grad(), pytest.raises(ValueError, match="cuda or cpu"):
         matmul._matmul_bias_gelu(x, w, b, False)
     assert plain_grad.needs_grad(x) and not plain_grad.needs_grad(x.detach())
+
+
+# what csrc/mlp_block.cu does not take: (K, F, activation, bf16 x 2 bytes
+# past a 16 B boundary), and the error the wrapper names it with
+BAD_MLP = {"K192": ((192, 768, "gelu_exact", False), "K=192"),
+           "K896": ((896, 256, "gelu_exact", False), "K=896"),
+           "F96": ((128, 96, "gelu_exact", False), "F=96"),
+           "misaligned": ((128, 512, "gelu_exact", True), "16-byte aligned"),
+           "activation": ((128, 512, "relu", False), "relu")}
+
+
+@pytest.mark.parametrize("case", list(BAD_MLP))
+def test_ln_mlp_block_refuses_before_any_launch(monkeypatch, case):
+    """The wrapper of #9 checks what `csrc/mlp_block.cu` takes (K a multiple
+    of 128 up to 768, F a multiple of 64, a 16 B aligned x, a known
+    activation) before it builds or launches anything: here the device test
+    is forced to say "kernel" on CPU tensors and any build or launch fails
+    the test."""
+    def no_launch(*args, **kwargs):
+        raise AssertionError("the wrapper reached the kernel")
+
+    monkeypatch.setattr(matmul, "use_kernel", lambda *args: True)
+    monkeypatch.setattr(matmul.cuda_build, "kernel_fn", no_launch)
+    (K, F, act, misaligned), match = BAD_MLP[case]
+    bf = torch.bfloat16
+    x = torch.zeros(2 * 3 * K + 1, dtype=bf)[int(misaligned):][:2 * 3 * K].view(2, 3, K)
+    w1, w2 = torch.zeros(F, K, dtype=bf), torch.zeros(K, F, dtype=bf)
+    ones_k = torch.ones(K)
+    before = matmul.ln_mlp_block.launches
+    with pytest.raises(ValueError, match=match):
+        ln_mlp_block(x, ones_k, ones_k, w1, torch.ones(F), w2, ones_k, act)
+    assert matmul.ln_mlp_block.launches == before

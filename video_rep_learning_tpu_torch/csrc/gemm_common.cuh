@@ -1,24 +1,11 @@
-// Device helpers shared by the ViT GEMMs (ln_gemm.cu, mlp_block.cu):
-// cp.async copies, the LayerNorm prologue into a shared A panel, and the
-// fp32 activation epilogue.
+// Device helpers shared by the ViT GEMMs (ln_gemm.cu, mlp_block.cu): the
+// fp32 kernels' LayerNorm prologue into a shared A panel, and the fp32
+// activation epilogue.
 #pragma once
 
 #include "common.cuh"
 
 namespace vrl {
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Rows m0 .. m0+BM-1 of x into the shared A panel (row stride lda), through
 // the LN when g is given, rounded to T; rows past M are zeros. One warp a

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (ln_gemm.cu, packed_attn.cu): mbarriers, TMA tile loads, wgmma shared
-// memory descriptors and the wgmma instructions the kernels issue, and the
-// host-side encoding of a TMA tensor map.
+// (ln_gemm.cu, mlp_block.cu, packed_attn.cu): mbarriers, TMA tile loads,
+// wgmma shared memory descriptors and the wgmma instructions the kernels
+// issue, register rebalancing between warpgroups, and the host-side
+// encoding of a TMA tensor map.
 //
 // Layouts. Every tile a wgmma reads is K-major (or, for packed attention's
 // V, MN-major) in rows of 128 B (128 B swizzle) or 64 B (64 B swizzle), as
@@ -141,6 +142,21 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Register rebalancing between warpgroups (setmaxnreg): a warp-specialised
+// block launched with R registers a thread hands registers from its
+// producer warpgroup (dec) to its consumers (inc); the totals after must
+// stay within the launch's. All four warps of a warpgroup execute it, on a
+// path that never rejoins the other role's (or ptxas ignores it). N is a
+// multiple of 8 in [24, 256].
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // --- wgmma -----------------------------------------------------------------
 
 constexpr int kSwizzle128 = 1;  // descriptor layout types
@@ -196,6 +212,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
                                             uint64_t db, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db,
@@ -282,6 +312,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }  // namespace sm90
 
 // --- host ------------------------------------------------------------------
+
+// The current device's SM count, the grid of a persistent kernel (one
+// block an SM).
+inline cudaError_t sm_count(int* n) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+}
 
 // A bf16 TMA tensor map of `rank` dims (innermost first; strides in bytes
 // for dims 1..rank-1), box `box`, zero fill past the extent.

@@ -25,12 +25,24 @@
 #include <mma.h>
 
 #include "common.cuh"
-#include "gemm_common.cuh"
 
 namespace {
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 constexpr int kBM = 128, kBN = 128, kBK = 32, kThreads = 256;
 
@@ -48,11 +60,11 @@ tc_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, Acc* __restrict
     const int k0 = kt * kBK;
     for (int v = tid; v < kBM * kBK / kVec; v += kThreads) {
       const int r = v / (kBK / kVec), c = (v % (kBK / kVec)) * kVec;
-      vrl::cp_async16(&As[buf][c / 16][r][c % 16], x + (size_t)(m0 + r) * K + k0 + c);
+      cp_async16(&As[buf][c / 16][r][c % 16], x + (size_t)(m0 + r) * K + k0 + c);
     }
     for (int v = tid; v < kBK * kBN / kVec; v += kThreads) {
       const int r = v / (kBN / kVec), c = (v % (kBN / kVec)) * kVec;
-      vrl::cp_async16(&Bs[buf][c / 16][r][c % 16], w + (size_t)(k0 + r) * F + n0 + c);
+      cp_async16(&Bs[buf][c / 16][r][c % 16], w + (size_t)(k0 + r) * F + n0 + c);
     }
   };
 
@@ -64,14 +76,14 @@ tc_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, Acc* __restrict
 
   const int nk = K / kBK;
   load(0, 0);
-  vrl::cp_async_commit();
+  cp_async_commit();
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) {
       load(kt + 1, (kt + 1) & 1);
-      vrl::cp_async_commit();
-      vrl::cp_async_wait<1>();
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
-      vrl::cp_async_wait<0>();
+      cp_async_wait<0>();
     }
     __syncthreads();  // tile kt is in
     const int buf = kt & 1;

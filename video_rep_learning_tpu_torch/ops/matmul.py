@@ -215,6 +215,8 @@ def _check_mlp_inputs(x, ln_scale, ln_bias, w1, b1, w2, b2, activation):
     if w1.dim() != 2 or w1.shape[1] != K or w2.dim() != 2 or w2.shape != (K, w1.shape[0]):
         raise ValueError(f"w1 must be (F, {K}) and w2 ({K}, F), got "
                          f"{tuple(w1.shape)} and {tuple(w2.shape)}")
+    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        raise ValueError("a bf16 x must be 16-byte aligned (TMA)")
     Fh = w1.shape[0]
     if K % MLP_K_MULTIPLE or K > MLP_MAX_K or Fh % MLP_F_MULTIPLE or Fh == 0:
         raise ValueError(f"the kernel takes K % {MLP_K_MULTIPLE} == 0, K <= "
