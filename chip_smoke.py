@@ -11,7 +11,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: nvcc builds every `video_rep_learning_tpu_torch/csrc/*.cu`, one
    compiler per source, all at once; each kernel's registers, stack and
-   spills as ptxas reports them (#9's go into the `kernels` line);
+   spills as ptxas reports them (those of the wgmma kernels of #9,
+   13c-13e and 13f go into the `kernels` line);
 3. kernel vs plain, and times beside the plain version, the bound and the
    library call where there is one:
    - flash-attention forward and backward in fp32 and bf16 at the CARL
@@ -26,7 +27,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      and a ragged last chunk (7 frames), the LN-MLP half-block also in bf16
      at the trainable tail's 480 frames; the block's three GEMMs and both
      attention forms timed with their TFLOP/s, bound share and library
-     ratio;
+     ratio; #1 and #3 at the training shape beside SDPA on the same
+     masked function (its backward alone for #3);
 4. eval path: `python -m video_rep_learning_tpu_torch.evaluate`'s function on
    a synthetic Pouring set with a full-width CARL model (seeded weights) and
    the default four tasks (kendalls_tau, retrieval, classification,
@@ -258,21 +260,34 @@ def phase_build():
                 if ("Compiling entry function" in line or "registers" in line
                         or "spill" in line):
                     log(f"  ptxas {name}: " + line.strip())
-    return mlp_wgmma_ptxas(logs.get("mlp_block", ""))
+    built = {entry: wgmma_ptxas(logs.get(src, ""), kernel)
+             for entry, (src, kernel) in WGMMA_KERNELS.items()}
+    missing = [WGMMA_KERNELS[e][1] for e, found in built.items() if not found]
+    if missing:
+        raise AssertionError(f"ptxas reported no {missing}")
+    return built
 
 
-def mlp_wgmma_ptxas(text):
-    """#9's wgmma kernel as built, one instance per activation: registers,
-    stack frame and spill bytes from the `-Xptxas -v` lines after its
-    entry."""
+# the `kernels` line's entries whose wgmma kernels carry their ptxas report:
+# entry: (source under csrc/, kernel)
+WGMMA_KERNELS = {"ln_mlp_block": ("mlp_block", "mlp_wgmma_kernel"),
+                 "packed_attn_variant": ("packed_attn_variants", "attn_variant_wgmma_kernel"),
+                 "int8_gemm": ("int8_gemm", "gemm_wgmma_kernel")}
+
+
+def wgmma_ptxas(text, kernel):
+    """`kernel` as built, one instance per template argument list (e.g.
+    `mlp_wgmma_kernel<1>`): registers, stack frame and spill bytes from the
+    `-Xptxas -v` lines after its entry."""
     import re
 
-    return {f"mlp_wgmma_kernel<{m[0]}>": dict(
-        registers=int(m[4]), stack=int(m[1]), spill_stores=int(m[2]),
-        spill_loads=int(m[3])) for m in re.findall(
-        r"Compiling entry function '[^']*mlp_wgmma_kernelILi(\d)E[^']*'.*?"
+    found = re.findall(
+        rf"Compiling entry function '[^']*{kernel}I((?:L[a-z]+\d+E)+)E[^']*'.*?"
         r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
-        r"spill loads.*?Used (\d+) registers", text, re.S)}
+        r"spill loads.*?Used (\d+) registers", text, re.S)
+    return {f"{kernel}<{','.join(re.findall(r'L[a-z]+(\d+)E', m[0]))}>": dict(
+        registers=int(m[4]), stack=int(m[1]), spill_stores=int(m[2]),
+        spill_loads=int(m[3])) for m in found}
 
 
 def make_synthetic_set():
@@ -395,25 +410,31 @@ def phase_attention_backward():
     mask[:, S - S // 8:] = 0
     scale = d ** -0.5
     out, lse = flash_attention_fwd(q, k, v, mask, scale)
+    # the library call on the same function: the key mask as a boolean
+    # (B, 1, 1, S) attn_mask, True where a key is attended
+    sdpa_mask = mask.bool()[:, None, None, :]
     entries = {}
     ms, plain_ms, lib_ms, host_ms = timed(
         lambda: flash_attention_fwd(q, k, v, mask, scale),
         lambda: attention_reference(q, k, v, mask, scale),
-        lambda: F.scaled_dot_product_attention(q, k, v))
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask, scale=scale))
     keys = int(mask.sum())  # the masked keys need no work
     b_ms, b_by = bound(*attention_fwd(B, H, S, d, keys=keys))
     entries["flash_attn_fwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=lib_ms,
                                      host_ms=host_ms)
+    # SDPA's backward alone: the gradient of one retained masked forward,
+    # the forward outside the timing
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask, scale=scale)
 
-    def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(qg, kg, vg).backward(dout)
+    def sdpa_bwd():
+        torch.autograd.grad(sdpa_out, (qg, kg, vg), dout, retain_graph=True)
 
     ms, plain_ms, lib_ms, host_ms = timed(
         lambda: flash_attention_bwd(q, k, v, mask, out, lse, dout, scale),
         lambda: attention_backward_reference(q, k, v, mask, out, lse, dout, scale),
-        sdpa_fwd_bwd)
+        sdpa_bwd)
     b_ms, b_by = bound(*attention_bwd(B, H, S, d, keys=keys))
     entries["flash_attn_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=lib_ms,
@@ -422,8 +443,9 @@ def phase_attention_backward():
         log(f"time {TRAIN_ATTN_SHAPE} fp32 masked: {name} kernel {e['ms']:.4f} ms "
             f"(host {e['host_ms']:.4f} ms a call), "
             f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']}), library (scaled_dot_product_attention, no mask"
-            f"{', fwd+bwd' if name.endswith('bwd') else ''}) {e['library_ms']:.4f} ms")
+            f"({e['bound_by']}), library (scaled_dot_product_attention, the same "
+            f"key mask{', its backward alone' if name.endswith('bwd') else ''}) "
+            f"{e['library_ms']:.4f} ms")
     return entries
 
 
@@ -2106,8 +2128,6 @@ def main():
     entries["flash_attn_fwd"]["max_abs_err"] = fwd_err
     entries.update(phase_augment())
     entries.update(phase_vit_kernels())
-    # #9 as built: registers and spills of its wgmma kernel (one per activation)
-    entries["ln_mlp_block"]["ptxas"] = ptxas
     phase_vit_grads()
     entries.update(phase_scl_kernels())
     eval_launches = phase_main_path(data_root, card)
@@ -2142,6 +2162,9 @@ def main():
     tool_entries, tool_launches = phase_tools(card)
     entries["ln_gemm"].update(tool_entries.pop("ln_gemm_tools"))
     entries.update(tool_entries)
+    # the wgmma kernels as built (#9, 13c-13e, 13f): registers, stack, spills
+    for name, built in ptxas.items():
+        entries[name]["ptxas"] = built
     kernels = []
     for name, (src, replaces, *also) in SOURCES.items():
         if name in TOOL_ENTRIES:

@@ -21,6 +21,8 @@ import torch
 from video_rep_learning_tpu_torch.ops import (elementwise_chain, int8_matmul)
 from video_rep_learning_tpu_torch.ops import (attention, layernorm, matmul,
                                               photometric, scl, vit_block)
+from video_rep_learning_tpu_torch.tools import (bench_attn_variants,
+                                                bench_packed_attn)
 
 pytestmark = pytest.mark.cuda
 
@@ -590,13 +592,21 @@ def test_ln_matmul_ln_once_matches_plain(cuda, shape, F):
     _assert_vit("mm", dtype, got, want)
 
 
-# (exp2, nomax, bf16p, block_q, heads a block, images a block)
+# (exp2, nomax, bf16p, block_q, heads a block, images a block): four of
+# this file's own, then the eleven VARIANTS of the two tools (heads and
+# images a block cut to the shape's H and B)
 ATTN_VARIANTS = [(False, False, False, 64, 1, 1), (True, False, False, 256, 2, 1),
                  (True, True, False, 64, 2, 2), (True, True, True, 64, 4, 1)]
+ATTN_VARIANTS += [(*v[:3], 64, *v[3:]) for v in bench_packed_attn.VARIANTS.values()]
+ATTN_VARIANTS += [(*v[:3], v[5], *v[3:5]) for v in bench_attn_variants.VARIANTS.values()]
 
 
 @pytest.mark.parametrize("variant", ATTN_VARIANTS, ids=str)
-@pytest.mark.parametrize("shape", [(2, 64, 2), (2, 300, 4)], ids=str)
+# N below one 64-key tile, N past two tiles with a ragged end (and past one
+# 256-row query tile), a block whose items outnumber its warpgroups, the
+# TPU scripts' shape
+@pytest.mark.parametrize("shape", [(2, 64, 2), (2, 300, 4), (4, 17, 2), (8, 130, 12),
+                                   (40, 785, 12)], ids=str)
 def test_packed_attention_variant_matches_plain(cuda, shape, variant):
     B, N, H = shape
     exp2, nomax, bf16p, bq, hpb, ipb = variant
@@ -606,7 +616,7 @@ def test_packed_attention_variant_matches_plain(cuda, shape, variant):
     before = attention.packed_attention_variant.launches
     got = attention.packed_attention_variant(
         qkv, H, **flags, block_q=bq, heads_per_block=min(hpb, H),
-        images_per_block=ipb)
+        images_per_block=min(ipb, B))
     torch.cuda.synchronize()
     assert attention.packed_attention_variant.launches == before + 1
     want = attention.packed_attention_variant_reference(qkv, H, **flags)
@@ -618,7 +628,10 @@ def test_packed_attention_variant_matches_plain(cuda, shape, variant):
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("M,K,F", [(128, 64, 128), (256, 96, 384)], ids=str)
+# the TPU script's fc1 shape, the smallest the kernel takes, and a K of
+# eight int8 stages (sixteen bf16) with one 128-row panel of output tiles
+@pytest.mark.parametrize("M,K,F", [(128, 64, 128), (256, 96, 384), (31360, 768, 3072),
+                                   (128, 32, 128), (384, 1024, 256)], ids=str)
 def test_tc_matmul_matches_plain(cuda, M, K, F, dtype):
     g = torch.Generator().manual_seed(13)
     if dtype == torch.int8:
@@ -665,6 +678,12 @@ def test_micro_benchmark_kernels_reject_bad_input(cuda):
                                            bf16p=False, block_q=128)
     with pytest.raises(TypeError, match="bf16"):
         attention.packed_attention_variant(qkv.float(), 2, exp2=True, nomax=True,
+                                           bf16p=False)
+    # the kernel's TMA tensor map: a 16-byte aligned qkv
+    misaligned = torch.zeros(2 * 5 * 384 + 4, device=cuda,
+                             dtype=torch.bfloat16)[4:].view(2, 5, 384)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention.packed_attention_variant(misaligned, 2, exp2=True, nomax=True,
                                            bf16p=False)
     with pytest.raises(TypeError, match="math"):
         elementwise_chain.elementwise_chain(torch.zeros(8, device=cuda), 2,

@@ -28,6 +28,10 @@ The seven `pallas_call` sites:
   below 1 a rep, 2^-24, carried through the rep's factors of ~1, so 6 reps
   stay within 6 x 2^-23; a bf16 output may then round one bf16 ulp (2^-8
   below 1) apart.
+
+And the wrappers of the two tensor-core kernels of row 13,
+`packed_attention_variant` and `tc_matmul`, refusing what their kernels
+do not take before any build or launch.
 """
 
 import importlib.util
@@ -40,6 +44,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from video_rep_learning_tpu_torch.ops import attention, int8_matmul
 from video_rep_learning_tpu_torch.ops.attention import \
     packed_attention_variant_reference
 from video_rep_learning_tpu_torch.ops.elementwise_chain import \
@@ -204,3 +209,57 @@ def test_tool_main_on_cpu(capsys):
                                ["--device", "cpu"])
     out = capsys.readouterr().out
     assert "nothing timed" in out and out.count(" ok ") == 3
+
+
+def _qkv_bf16(B, N, H, dh=64, offset=0):
+    """A zero (B, N, 3 H dh) bf16 qkv whose data starts `offset` elements
+    into its storage (4: 8 bytes, off the 16-byte alignment TMA needs)."""
+    n = B * N * 3 * H * dh
+    return torch.zeros(n + offset, dtype=torch.bfloat16)[offset:].view(B, N, 3 * H * dh)
+
+
+def _mm(M, K, F, offset=0):
+    x = torch.zeros(M * K + offset, dtype=torch.int8)[offset:].view(M, K)
+    return x, torch.zeros(K, F, dtype=torch.int8)
+
+
+VARIANT = dict(exp2=True, nomax=True, bf16p=False)
+# case: (the call, what its refusal names)
+REFUSALS = {
+    "attn misaligned qkv": (lambda: attention.packed_attention_variant(
+        _qkv_bf16(2, 5, 2, offset=4), 2, **VARIANT), "16-byte aligned"),
+    "attn block_q 128": (lambda: attention.packed_attention_variant(
+        _qkv_bf16(2, 5, 2), 2, **VARIANT, block_q=128), "block_q"),
+    "attn dh 32": (lambda: attention.packed_attention_variant(
+        _qkv_bf16(2, 5, 2, dh=32), 2, **VARIANT), "head width 32"),
+    "attn heads_per_block 4 of 6": (lambda: attention.packed_attention_variant(
+        _qkv_bf16(2, 5, 6), 6, **VARIANT, heads_per_block=4), "heads_per_block"),
+    "mm M 100": (lambda: int8_matmul.tc_matmul(*_mm(100, 64, 128)), "M=100"),
+    "mm K 48": (lambda: int8_matmul.tc_matmul(*_mm(128, 48, 128)), "K=48"),
+    "mm F 200": (lambda: int8_matmul.tc_matmul(*_mm(128, 64, 200)), "F=200"),
+    "mm misaligned x": (lambda: int8_matmul.tc_matmul(*_mm(128, 64, 128, offset=8)),
+                        "16-byte aligned"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_row13_kernels_refuse_before_any_launch(monkeypatch, case):
+    """What csrc/packed_attn_variants.cu (bf16, dh 64, block_q 64 or 256,
+    heads and images a block that divide, a 16-byte aligned qkv for its TMA
+    map) and csrc/int8_gemm.cu (M % 128, K % 32, F % 128, 16-byte aligned
+    operands) do not take is refused before any build or launch: the device
+    test is forced to say "kernel" on these CPU tensors, and reaching the
+    kernel fails the test."""
+    def no_launch(*args, **kwargs):
+        raise AssertionError("the wrapper reached the kernel")
+
+    for mod in (attention, int8_matmul):
+        monkeypatch.setattr(mod, "use_kernel", lambda *args: True)
+    monkeypatch.setattr(attention.cuda_build, "kernel_fn", no_launch)
+    call, match = REFUSALS[case]
+    before = (attention.packed_attention_variant.launches,
+              int8_matmul.tc_matmul.launches)
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert before == (attention.packed_attention_variant.launches,
+                      int8_matmul.tc_matmul.launches)

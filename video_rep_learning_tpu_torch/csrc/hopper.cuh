@@ -1,16 +1,23 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (ln_gemm.cu, mlp_block.cu, packed_attn.cu): mbarriers, TMA tile loads,
-// wgmma shared memory descriptors and the wgmma instructions the kernels
-// issue, register rebalancing between warpgroups, and the host-side
-// encoding of a TMA tensor map.
+// (ln_gemm.cu, mlp_block.cu, packed_attn.cu, packed_attn_variants.cu,
+// int8_gemm.cu): mbarriers, TMA tile loads and stores, wgmma shared memory
+// descriptors and the wgmma instructions the kernels issue, register
+// rebalancing between warpgroups, and the host-side encoding of a TMA
+// tensor map.
 //
-// Layouts. Every tile a wgmma reads is K-major (or, for packed attention's
-// V, MN-major) in rows of 128 B (128 B swizzle) or 64 B (64 B swizzle), as
-// TMA writes it with CU_TENSOR_MAP_SWIZZLE_128B / _64B: row r of a tile
-// lives at r * row_bytes, its 16 B chunk c at chunk c ^ (r % 8) (128 B) and
-// the 64 B pattern likewise over address bits 7-8. Tiles start on 1024 B
-// boundaries, so the swizzle phase is that of the address and a k16 step
-// inside a row is +32 B on the descriptor's start address.
+// Layouts. Every tile a wgmma reads is K-major (or, for attention's V and
+// the bf16 GEMM's w, MN-major) in rows of 128 B (128 B swizzle) or 64 B (64
+// B swizzle), as TMA writes it with CU_TENSOR_MAP_SWIZZLE_128B / _64B: row r
+// of a tile lives at r * row_bytes, its 16 B chunk c at chunk c ^ (r % 8)
+// (128 B) and the 64 B pattern likewise over address bits 7-8. Tiles start
+// on 1024 B boundaries, so the swizzle phase is that of the address and a
+// k step inside a row (k16 of bf16, k32 of int8: 32 B) is +32 B on the
+// descriptor's start address. An MN-major tile in the 128 B swizzle holds
+// 64 bf16 of M or N a row and one k a row: a k16 step is +16 rows (2048 B),
+// the 8-row groups along k are its stride offset (1024 B) and the next 64
+// of N its leading offset. wgmma reads 8-bit operands K-major only (the
+// transpose bits exist for 16-bit types), so an int8 B that lies (K, N)
+// is transposed to (N, K) before the product.
 #pragma once
 
 #include <cuda.h>
@@ -137,6 +144,14 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// The calling thread's warpgroup, read through a shuffle so that the
+// compiler knows it is the same across the warp: what is computed from it
+// (shared memory offsets, wgmma descriptors, loop bounds) then stays in
+// uniform registers, where wgmma takes its descriptors.
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+}
+
 // bar.sync on a named barrier of `threads` threads (id 0 is __syncthreads).
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -196,6 +211,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // Accumulator layout of m64nNk16 (f32): thread t of the warpgroup, w = t / 32,
 // l = t % 32, holds d[4j + e] = D[16w + l/4 + 8(e/2)][8j + 2(l%4) + e%2].
@@ -212,6 +232,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
                                             uint64_t db, int accumulate);
+// d (+)= A B: A (64 x 16) K-major and B (16 x N) MN-major, both bf16 in
+// shared memory (the transpose bit on B).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                            int accumulate);
+// d (+)= A B^T in int32: A (64 x 32) and B (N x 32) int8, both K-major in
+// shared memory, summed exactly.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[N / 2], uint64_t da, uint64_t db,
+                                            int accumulate);
 
 template <>
 __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db,
@@ -303,6 +333,76 @@ __device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<64>(float (&d)[32], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<128>(float (&d)[64], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_s8<128>(int (&d)[64], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -322,15 +422,18 @@ inline cudaError_t sm_count(int* n) {
   return cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
 }
 
-// A bf16 TMA tensor map of `rank` dims (innermost first; strides in bytes
-// for dims 1..rank-1), box `box`, zero fill past the extent.
+// A TMA tensor map of `rank` dims of `type` (innermost first; strides in
+// bytes for dims 1..rank-1), box `box` (elements), zero fill past the
+// extent. 1-byte elements go as UINT8 (TMA moves bytes; int8 is the same
+// bits), 4-byte ones as INT32 or FLOAT32.
 // cuTensorMapEncodeTiled lives in libcuda, which the CUDA runtime has
 // already loaded; it is looked up there by name, so the libraries link
 // nothing beyond the runtime. Returns cudaErrorInvalidValue where the map
 // is refused, cudaErrorNotSupported where the function is not found.
-inline cudaError_t encode_bf16_map(CUtensorMap* map, int rank, const void* base,
-                                   const uint64_t* dims, const uint64_t* strides,
-                                   const uint32_t* box, CUtensorMapSwizzle swizzle) {
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                              const void* base, const uint64_t* dims,
+                              const uint64_t* strides, const uint32_t* box,
+                              CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave,
@@ -346,13 +449,20 @@ inline cudaError_t encode_bf16_map(CUtensorMap* map, int rank, const void* base,
   }
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+      map, type, static_cast<cuuint32_t>(rank),
       const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
       reinterpret_cast<const cuuint64_t*>(strides),
       reinterpret_cast<const cuuint32_t*>(box), elem_strides,
       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t encode_bf16_map(CUtensorMap* map, int rank, const void* base,
+                                   const uint64_t* dims, const uint64_t* strides,
+                                   const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base, dims, strides, box,
+                    swizzle);
 }
 
 }  // namespace vrl

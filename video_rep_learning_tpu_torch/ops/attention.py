@@ -388,6 +388,8 @@ def packed_attention_variant(qkv, num_heads, *, exp2, nomax, bf16p, block_q=64,
                          f"{images_per_block} the {B} images")
     if B // images_per_block > 65535:
         raise ValueError(f"grid too large: B={B}")
+    if qkv.data_ptr() % 16:  # the kernel's TMA tensor map
+        raise ValueError("qkv must be 16-byte aligned")
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
     if B == 0 or N == 0:
         return out

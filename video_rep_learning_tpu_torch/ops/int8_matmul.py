@@ -5,8 +5,9 @@ between them by the device of the tensors.
 Counterpart of the TPU micro-benchmark kernel `_mm_kernel`
 (`tools/bench_int8_pallas.py:28`, `_pallas_mm`), x (M, K) @ w (K, F) with w
 in its (K, F) layout, which asks whether int8 is worth a GEMM of its own for
-a quantized ViT backbone; the kernel is `csrc/int8_gemm.cu`. No model path
-takes it yet.
+a quantized ViT backbone; the kernel is `csrc/int8_gemm.cu` (wgmma fed by
+TMA; for int8 it first transposes w into a scratch tensor this wrapper
+allocates). No model path takes it yet.
 
 - A CUDA tensor launches the kernel or raises: there is no fallback.
 - A CPU tensor takes the plain version, `tc_matmul_reference`.
@@ -57,11 +58,16 @@ def tc_matmul(x, w):
                              f"{x.device}")
     code, out_dtype = _CODES[x.dtype]
     out = torch.empty((M, Fo), dtype=out_dtype, device=x.device)
+    # int8: w transposed to (F, K) by the kernel's first launch (wgmma reads
+    # 8-bit operands K-major only)
+    scratch = (torch.empty((Fo, K), dtype=torch.int8, device=x.device)
+               if x.dtype == torch.int8 else None)
     fn = cuda_build.kernel_fn("int8_gemm", "vrl_tc_gemm",
-                              (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
+                              (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
                               + (ctypes.c_void_p,))
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, Fo, code,
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), M, K, Fo, code,
                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check_launch("int8_gemm", err)
     tc_matmul.launches += 1

@@ -3,8 +3,10 @@ shape of a 40-frame chunk, (31360, 768) x (768, 3072), as the TPU script
 `tools/bench_int8_pallas.py` times them, on the H100: the port's tensor-core
 GEMM `tc_matmul` (csrc/int8_gemm.cu, the counterpart of `_mm_kernel`) in
 both types, against its plain versions, beside the library calls
-(`torch._int_mm` for int8, given w column-major as cuBLASLt takes it;
-`torch.matmul` in bf16, whose output rounds to bf16) and the bounds. The
+(`torch._int_mm` for int8, given w column-major as cuBLASLt takes it, made
+before the timing, where tc_matmul's time includes transposing w (K, F),
+since wgmma reads 8-bit operands K-major only; `torch.matmul` in bf16,
+whose output rounds to bf16) and the bounds. The
 question it answers: is int8 worth a GEMM of its own for a quantized ViT
 backbone? The TPU script's chained `fori_loop` is not carried over: CUDA
 events time the launches themselves.
@@ -43,7 +45,7 @@ def run(device="cuda", M=M, K=K, F=FO, reps=20):
     for name, x, w, tol_of, library, lib_what, unit in (
             ("int8 (tc_matmul)", xi, wi, lambda want: 0.0,
              (lambda: torch._int_mm(xi, wi_cm)) if cuda else None,
-             "torch._int_mm, w column-major", "Tops"),
+             "torch._int_mm, w column-major made untimed", "Tops"),
             ("bf16 (tc_matmul)", xb, wb,
              lambda want: BF16_REL_TOL * want.abs().max().item(),
              (lambda: torch.matmul(xb, wb)) if cuda else None,
