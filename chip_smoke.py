@@ -11,15 +11,18 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: nvcc builds every `video_rep_learning_tpu_torch/csrc/*.cu`, one
    compiler per source, all at once; each kernel's registers, stack and
-   spills as ptxas reports them (those of the wgmma kernels of #9,
-   13c-13e and 13f go into the `kernels` line);
+   spills as ptxas reports them (those of the tensor-core kernels of #3, #9,
+   13c-13e and 13f and of #12's cluster kernel go into the `kernels` line);
 3. kernel vs plain, and times beside the plain version, the bound and the
    library call where there is one:
    - flash-attention forward and backward in fp32 and bf16 at the CARL
-     shapes, a long key range, padded keys and a fully masked row;
+     shapes and the MV-Former encoder's (2, 8, 720, 32), a long key range,
+     padded keys and a fully masked row, the backward also bit for bit
+     against a second launch;
    - crop+photometric and photometric at the CARL training shape
      (2 views x 240 frames of 256x256 uint8 -> 224), every flag, blur sigma
-     0.1 and 2.0, a padded canvas, fp32 and bf16 output;
+     0.1 and 2.0, a padded canvas, fp32 and bf16 output, and bit for bit
+     against a second launch;
    - the ViT kernels (LayerNorm, LN + matmul + bias + activation with each
      activation and with the residual epilogue, packed attention in both
      softmax forms, the attention half-block, matmul + GELU, the LN-MLP
@@ -27,8 +30,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      and a ragged last chunk (7 frames), the LN-MLP half-block also in bf16
      at the trainable tail's 480 frames; the block's three GEMMs and both
      attention forms timed with their TFLOP/s, bound share and library
-     ratio; #1 and #3 at the training shape beside SDPA on the same
-     masked function (its backward alone for #3);
+     ratio; #1 and #3 at the CARL training shape and the MV-Former
+     encoder's beside SDPA on the same masked function (its backward alone
+     for #3);
 4. eval path: `python -m video_rep_learning_tpu_torch.evaluate`'s function on
    a synthetic Pouring set with a full-width CARL model (seeded weights) and
    the default four tasks (kendalls_tau, retrieval, classification,
@@ -119,6 +123,10 @@ SEED = 0
 CARL_TIMING_SHAPES = [(1, 8, 240, 32), (1, 8, 1000, 32)]
 # and the training path (2 views, 8 heads, 240 frames, 32) fp32
 TRAIN_ATTN_SHAPE = (2, 8, 240, 32)
+# the MV-Former encoder's attention: hidden 256 in 8 heads over 3 LSTP tokens
+# x 240 frames, fp32 (models/mvformer.py); #1 and #3 are timed at both
+MVF_ATTN_SHAPE = (2, 8, 720, 32)
+TIMED_ATTN_SHAPES = (TRAIN_ATTN_SHAPE, MVF_ATTN_SHAPE)
 TOL = {  # max |kernel - plain(fp32)|
     # fp32: the same fp32 math summed in another order
     (torch.float32, "out"): 1e-5, (torch.float32, "lse"): 1e-4,
@@ -260,34 +268,45 @@ def phase_build():
                 if ("Compiling entry function" in line or "registers" in line
                         or "spill" in line):
                     log(f"  ptxas {name}: " + line.strip())
-    built = {entry: wgmma_ptxas(logs.get(src, ""), kernel)
-             for entry, (src, kernel) in WGMMA_KERNELS.items()}
-    missing = [WGMMA_KERNELS[e][1] for e, found in built.items() if not found]
+    built = {entry: ptxas_report(logs.get(src, ""), kernel)
+             for entry, (src, kernel) in PTXAS_KERNELS.items()}
+    missing = [PTXAS_KERNELS[e][1] for e, found in built.items() if not found]
     if missing:
         raise AssertionError(f"ptxas reported no {missing}")
     return built
 
 
-# the `kernels` line's entries whose wgmma kernels carry their ptxas report:
+# the `kernels` line's entries that carry their kernel's ptxas report (the
+# tensor-core kernels of #9, 13c-13e, 13f, #3, and #12's cluster kernel):
 # entry: (source under csrc/, kernel)
-WGMMA_KERNELS = {"ln_mlp_block": ("mlp_block", "mlp_wgmma_kernel"),
+PTXAS_KERNELS = {"ln_mlp_block": ("mlp_block", "mlp_wgmma_kernel"),
                  "packed_attn_variant": ("packed_attn_variants", "attn_variant_wgmma_kernel"),
-                 "int8_gemm": ("int8_gemm", "gemm_wgmma_kernel")}
+                 "int8_gemm": ("int8_gemm", "gemm_wgmma_kernel"),
+                 "flash_attn_bwd": ("flash_attn_bwd", "flash_bwd_mma_kernel"),
+                 "crop_photometric": ("photometric", "crop_strip_kernel")}
+# the mangled template arguments these kernels take, and how they print: an
+# integer literal (Li32E: 32), fp32, bf16
+_TEMPLATE_ARG = r"L[a-z]\d+E|f|13__nv_bfloat16"
+_TYPE_NAMES = {"f": "float", "13__nv_bfloat16": "bf16"}
 
 
-def wgmma_ptxas(text, kernel):
+def ptxas_report(text, kernel):
     """`kernel` as built, one instance per template argument list (e.g.
-    `mlp_wgmma_kernel<1>`): registers, stack frame and spill bytes from the
-    `-Xptxas -v` lines after its entry."""
+    `flash_bwd_mma_kernel<32,float>`): registers, stack frame and spill bytes
+    from the `-Xptxas -v` lines after its entry."""
     import re
 
     found = re.findall(
-        rf"Compiling entry function '[^']*{kernel}I((?:L[a-z]+\d+E)+)E[^']*'.*?"
+        rf"Compiling entry function '[^']*{kernel}I((?:{_TEMPLATE_ARG})+)E[^']*'.*?"
         r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
         r"spill loads.*?Used (\d+) registers", text, re.S)
-    return {f"{kernel}<{','.join(re.findall(r'L[a-z]+(\d+)E', m[0]))}>": dict(
-        registers=int(m[4]), stack=int(m[1]), spill_stores=int(m[2]),
-        spill_loads=int(m[3])) for m in found}
+    report = {}
+    for args, stack, stores, loads, regs in found:
+        names = [_TYPE_NAMES.get(a) or a[2:-1] for a in re.findall(_TEMPLATE_ARG, args)]
+        report[f"{kernel}<{','.join(names)}>"] = dict(
+            registers=int(regs), stack=int(stack), spill_stores=int(stores),
+            spill_loads=int(loads))
+    return report
 
 
 def make_synthetic_set():
@@ -362,17 +381,14 @@ def phase_kernel_vs_plain(main_lens):
 
 def phase_attention_backward():
     """flash_attn_bwd against `attention_backward_reference` on the same
-    forward outputs, then the training-shape times of both directions."""
-    import torch.nn.functional as F
-
+    forward outputs (and bit for bit against a second launch), then the times
+    of both directions at the CARL training and MV-Former encoder shapes."""
     from video_rep_learning_tpu_torch.ops.attention import (
-        attention_backward_reference, attention_reference, flash_attention_bwd,
-        flash_attention_fwd)
-    from video_rep_learning_tpu_torch.ops.bounds import (attention_bwd,
-                                                         attention_fwd, bound)
+        attention_backward_reference, flash_attention_bwd, flash_attention_fwd)
 
     g = torch.Generator().manual_seed(SEED + 1)
-    cases = [(2, 8, 240, 32), (1, 8, 1000, 32), (1, 8, 6000, 32), (2, 4, 200, 64)]
+    cases = [TRAIN_ATTN_SHAPE, MVF_ATTN_SHAPE, (1, 8, 1000, 32), (1, 8, 6000, 32),
+             (2, 4, 200, 64)]
     main_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for shape in cases:
@@ -386,32 +402,57 @@ def phase_attention_backward():
             mask = mask.cuda()
             out, lse = flash_attention_fwd(q, k, v, mask, d ** -0.5)
             got = flash_attention_bwd(q, k, v, mask, out, lse, dout, d ** -0.5)
+            again = flash_attention_bwd(q, k, v, mask, out, lse, dout, d ** -0.5)
             torch.cuda.synchronize()
             want = attention_backward_reference(q, k, v, mask, out, lse, dout,
                                                 d ** -0.5)
             errs = [(a.float() - b.float()).abs().max().item()
                     / max(1.0, b.float().abs().max().item())
                     for a, b in zip(got, want)]
-            ok = max(errs) <= BWD_TOL[dtype] and all(
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = max(errs) <= BWD_TOL[dtype] and same and all(
                 bool(torch.isfinite(a.float()).all()) for a in got)
             log(f"kernel vs plain flash_attn_bwd {str(dtype)[6:]:8s} {shape} "
                 f"masked: dq/dk/dv err {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
-                f"(tol {BWD_TOL[dtype]:.1e} of max|g|) {'ok' if ok else 'FAIL'}")
+                f"(tol {BWD_TOL[dtype]:.1e} of max|g|), a second launch "
+                f"{'bit-identical' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash_attn_bwd disagrees at {shape} {dtype}")
             if dtype == torch.float32 and shape == TRAIN_ATTN_SHAPE:
                 main_err = max(errs)
 
-    # the training path's shape: (2 views, 8 heads, 240 frames, 32) fp32
-    B, H, S, d = TRAIN_ATTN_SHAPE
-    q, k, v, dout = (torch.randn(TRAIN_ATTN_SHAPE, generator=g).cuda()
-                     for _ in range(4))
+    # the CARL training shape, then the MV-Former encoder's (3 LSTP tokens x
+    # 240 frames): each direction beside its plain version, the bound and SDPA
+    entries = {}
+    for shape in TIMED_ATTN_SHAPES:
+        for name, e in time_attention(shape, g).items():
+            if shape == TRAIN_ATTN_SHAPE:
+                entries[name] = e
+            else:
+                entries[name]["at_" + "x".join(map(str, shape))] = e
+    entries["flash_attn_bwd"]["max_abs_err"] = main_err
+    return entries
+
+
+def time_attention(shape, g):
+    """#1 and #3 at `shape` fp32, the last eighth of the keys masked: kernel,
+    plain version, bound and SDPA given the same key mask as a boolean
+    attn_mask (for #3 its backward alone, the forward untimed)."""
+    import torch.nn.functional as F
+
+    from video_rep_learning_tpu_torch.ops.attention import (
+        attention_backward_reference, attention_reference, flash_attention_bwd,
+        flash_attention_fwd)
+    from video_rep_learning_tpu_torch.ops.bounds import (attention_bwd,
+                                                         attention_fwd, bound)
+
+    B, H, S, d = shape
+    q, k, v, dout = (torch.randn(shape, generator=g).cuda() for _ in range(4))
     mask = torch.ones(B, S, device="cuda")
     mask[:, S - S // 8:] = 0
     scale = d ** -0.5
     out, lse = flash_attention_fwd(q, k, v, mask, scale)
-    # the library call on the same function: the key mask as a boolean
-    # (B, 1, 1, S) attn_mask, True where a key is attended
+    # True where a key is attended, (B, 1, 1, S)
     sdpa_mask = mask.bool()[:, None, None, :]
     entries = {}
     ms, plain_ms, lib_ms, host_ms = timed(
@@ -423,8 +464,6 @@ def phase_attention_backward():
     entries["flash_attn_fwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=lib_ms,
                                      host_ms=host_ms)
-    # SDPA's backward alone: the gradient of one retained masked forward,
-    # the forward outside the timing
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask, scale=scale)
 
@@ -438,14 +477,15 @@ def phase_attention_backward():
     b_ms, b_by = bound(*attention_bwd(B, H, S, d, keys=keys))
     entries["flash_attn_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=lib_ms,
-                                     host_ms=host_ms, max_abs_err=main_err)
+                                     host_ms=host_ms)
     for name, e in entries.items():
-        log(f"time {TRAIN_ATTN_SHAPE} fp32 masked: {name} kernel {e['ms']:.4f} ms "
+        log(f"time {shape} fp32 masked: {name} kernel {e['ms']:.4f} ms "
             f"(host {e['host_ms']:.4f} ms a call), "
             f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}), library (scaled_dot_product_attention, the same "
             f"key mask{', its backward alone' if name.endswith('bwd') else ''}) "
-            f"{e['library_ms']:.4f} ms")
+            f"{e['library_ms']:.4f} ms, kernel / library "
+            f"{e['ms'] / e['library_ms']:.2f}")
     return entries
 
 
@@ -526,8 +566,12 @@ def phase_augment():
              torch.float32, 4 * x.numel())):
         full = args + (s["fscal"], s["orders"], s["mh"], s["mw"])
         for dt in (torch.float32, torch.bfloat16):
-            check(name, kern(*full, out_dtype=dt), plain(*full, out_dtype=dt), dt,
+            got = kern(*full, out_dtype=dt)
+            check(name, got, plain(*full, out_dtype=dt), dt,
                   f"({BV}, {T}, 3, {args[0].shape[-2]}, {args[0].shape[-1]}) -> {S}")
+            if not torch.equal(got, kern(*full, out_dtype=dt)):
+                raise AssertionError(f"{name} differs between two launches ({dt})")
+        log(f"{name}: a second launch bit-identical in fp32 and bf16")
         ms, plain_ms, _, host_ms = timed(lambda: kern(*full, out_dtype=dtype),
                                 lambda: plain(*full, out_dtype=dtype))
         out_bytes = BV * T * 3 * S * S * (2 if dtype == torch.bfloat16 else 4)
@@ -1138,7 +1182,10 @@ def phase_profile(trainer, batch):
     """One warm step under torch.profiler (device busy share, time by
     kernel), and one with CUDA events at the boundaries of its parts."""
     m = trainer.model
-    profile_train_step(trainer, batch, "CARL", "train_step_trace.json")
+    profile_train_step(trainer, batch, "CARL", "train_step_trace.json",
+                       {"flash_fwd_kernel": "flash_attn_fwd (encoder)",
+                        "flash_bwd_mma_kernel": "flash_attn_bwd",
+                        "crop_strip_kernel": "crop_photometric"})
 
     # the parts of one step, CUDA events between them (the host enqueues
     # ahead, so each span is device time plus any wait for the host)
@@ -1732,8 +1779,8 @@ def _mvf_train_path(data_root, card):
         f"{clips / step_ms * 1e3:.3f} clips/s on {card}; losses {losses}")
     own = dict(OWN_KERNELS, scl_rows_kernel="fused SCL passes 1-3",
                scl_grad_kernel="fused SCL pass 4",
-               dkdv_kernel="flash_attn_bwd dk/dv", dq_kernel="flash_attn_bwd dq",
-               photometric_kernel="crop_photometric")
+               flash_bwd_mma_kernel="flash_attn_bwd",
+               crop_strip_kernel="crop_photometric")
     profile_train_step(trainer, batch, "MV-Former", "mvf_train_step_trace.json", own)
     return launches
 
@@ -1969,8 +2016,8 @@ def phase_partial_train_path(data_root, card):
             f"uint8 -> 224 px): {step_ms:.1f} ms/step, {clips / step_ms * 1e3:.3f} "
             f"clips/s on {card}; losses {losses}")
         own = dict(OWN_KERNELS, mlp_wgmma_kernel="ln_mlp_block (#9)",
-                   dkdv_kernel="flash_attn_bwd dk/dv", dq_kernel="flash_attn_bwd dq",
-                   photometric_kernel="crop_photometric")
+                   flash_bwd_mma_kernel="flash_attn_bwd",
+                   crop_strip_kernel="crop_photometric")
         profile_train_step(trainer, batch, "partial ViT", "partial_train_step_trace.json",
                            own)
         _add(total, _read_launches())
@@ -2162,7 +2209,7 @@ def main():
     tool_entries, tool_launches = phase_tools(card)
     entries["ln_gemm"].update(tool_entries.pop("ln_gemm_tools"))
     entries.update(tool_entries)
-    # the wgmma kernels as built (#9, 13c-13e, 13f): registers, stack, spills
+    # the kernels as built (#9, 13c-13e, 13f, #3, #12): registers, stack, spills
     for name, built in ptxas.items():
         entries[name]["ptxas"] = built
     kernels = []
@@ -2199,7 +2246,7 @@ def main():
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
             "host_ms": e["host_ms"],
             **{k: v for k, v in e.items() if k.endswith("_480")
-               or k in ("row", "rows_ms", "rows_err", "rows_ms_b160", "slopes_ms",
+               or k.startswith("at_") or k in ("row", "rows_ms", "rows_err", "rows_ms_b160", "slopes_ms",
                         "parts", "ptxas", "mvf_eval_fused_mlp")}})
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -163,3 +163,60 @@ def test_wrapper_cpu_backward_counts_no_launch():
     assert tq.grad.shape == tq.shape
     assert (port.flash_attention_fwd.launches,
             port.flash_attention_bwd.launches) == before
+
+
+def _bwd_args(shape=(1, 2, 8, 32), dtype=torch.float32, offset=0):
+    """Backward inputs of `shape`; q starts `offset` elements into its
+    storage (4 fp32: 16 bytes in; 2: 8 bytes, off csrc/flash_attn_bwd.cu's
+    16-byte copies)."""
+    B, H, S, d = shape
+    n = B * H * S * d
+    q = torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+    k, v, out, dout = (torch.zeros(shape, dtype=dtype) for _ in range(4))
+    lse = torch.zeros(B, H, S)
+    return q, k, v, None, out, lse, dout
+
+
+BWD_REFUSALS = {  # case: (the arguments, what the refusal names)
+    "q 8 bytes off": (_bwd_args(offset=2), "16-byte aligned"),
+    "head width 16": (_bwd_args((1, 2, 8, 16)), "head width 16"),
+    "fp16": (_bwd_args(dtype=torch.float16), "fp32 or bf16"),
+    "lse shape": (_bwd_args()[:5] + (torch.zeros(1, 2, 7),) + _bwd_args()[6:],
+                  "lse must be"),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_REFUSALS))
+def test_backward_kernel_refuses_before_any_launch(monkeypatch, case):
+    """What csrc/flash_attn_bwd.cu does not take (head widths other than 32
+    and 64, types other than fp32 and bf16, tensors off the 16-byte alignment
+    of its cp.async copies, misshapen LSE) is refused before the library is
+    built or launched: the device test is forced to say "kernel" on these CPU
+    tensors, and reaching the library fails the test."""
+    def no_library(*args, **kwargs):
+        raise AssertionError("the wrapper reached the kernel")
+
+    monkeypatch.setattr(port, "use_kernel", lambda *args: True)
+    monkeypatch.setattr(port, "_library", no_library)
+    args, match = BWD_REFUSALS[case]
+    before = port.flash_attention_bwd.launches
+    with pytest.raises((ValueError, TypeError), match=match):
+        port.flash_attention_bwd(*args, 0.5)
+    assert port.flash_attention_bwd.launches == before
+
+
+def test_backward_kernel_takes_aligned_inputs(monkeypatch):
+    """The same forced route with inputs the kernel takes (q 16 bytes into its
+    storage) reaches the library: the refusals above are the wrapper's only
+    ones."""
+    reached = []
+
+    def no_library(*args, **kwargs):
+        reached.append(args)
+        raise AssertionError("the wrapper reached the kernel")
+
+    monkeypatch.setattr(port, "use_kernel", lambda *args: True)
+    monkeypatch.setattr(port, "_library", no_library)
+    with pytest.raises(AssertionError, match="reached the kernel"):
+        port.flash_attention_bwd(*_bwd_args(offset=4), 0.5)
+    assert reached == [("flash_attn_bwd",)]

@@ -75,11 +75,10 @@ def test_flash_attn_rejects_bad_head_width(cuda):
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3.2e-2}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("shape", [(2, 8, 240, 32), (1, 8, 1000, 32),
-                                   (1, 8, 6000, 32), (2, 4, 200, 64)], ids=str)
-def test_flash_attn_bwd_matches_plain(cuda, shape, dtype):
-    g = torch.Generator().manual_seed(1)
+def _bwd_case(cuda, shape, dtype, seed=1):
+    """q, k, v, dO of `shape`, a key mask with padded tail keys and (B > 1)
+    a fully masked batch row, and the forward kernel's out and LSE."""
+    g = torch.Generator().manual_seed(seed)
     B, _, S, d = shape
     q, k, v, dout = (torch.randn(shape, generator=g).to(cuda, dtype)
                      for _ in range(4))
@@ -89,16 +88,49 @@ def test_flash_attn_bwd_matches_plain(cuda, shape, dtype):
         mask[1] = 0
     mask = mask.to(cuda)
     out, lse = attention.flash_attention_fwd(q, k, v, mask, d ** -0.5)
+    return q, k, v, mask, out, lse, dout
+
+
+def _check_bwd(cuda, shape, dtype):
+    args = _bwd_case(cuda, shape, dtype)
+    d = shape[-1]
     before = attention.flash_attention_bwd.launches
-    got = attention.flash_attention_bwd(q, k, v, mask, out, lse, dout, d ** -0.5)
+    got = attention.flash_attention_bwd(*args, d ** -0.5)
     torch.cuda.synchronize()
     assert attention.flash_attention_bwd.launches == before + 1
-    want = attention.attention_backward_reference(q, k, v, mask, out, lse,
-                                                  dout, d ** -0.5)
+    want = attention.attention_backward_reference(*args, d ** -0.5)
     for a, b in zip(got, want):
-        assert a.dtype == dtype
+        assert a.dtype == dtype and a.shape == b.shape
         scale = max(1.0, b.float().abs().max().item())
         assert (a.float() - b.float()).abs().max().item() <= GRAD_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(2, 8, 240, 32), (2, 8, 720, 32), (1, 8, 1000, 32),
+                                   (1, 8, 6000, 32), (2, 4, 200, 64)], ids=str)
+def test_flash_attn_bwd_matches_plain(cuda, shape, dtype):
+    _check_bwd(cuda, shape, dtype)
+
+
+# the kernel's edges: lengths that are no multiple of its 32-row tiles and
+# 64-row steps, a single query, both head widths; each with a fully masked
+# batch row
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("S", [1, 37, 130])
+def test_flash_attn_bwd_edges_match_plain(cuda, S, d, dtype):
+    _check_bwd(cuda, (2, 3, S, d), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(2, 8, 240, 32), (2, 4, 130, 64)], ids=str)
+def test_flash_attn_bwd_is_deterministic(cuda, shape, dtype):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    args = _bwd_case(cuda, shape, dtype, seed=2)
+    first = attention.flash_attention_bwd(*args, shape[-1] ** -0.5)
+    second = attention.flash_attention_bwd(*args, shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_flash_attention_function_runs_both_kernels(cuda):
@@ -146,6 +178,75 @@ def test_crop_photometric_matches_plain(cuda, kind, dtype):
     want = photometric.crop_photometric_reference(*args, out_dtype=dtype)
     assert out.shape == want.shape and out.dtype == dtype
     assert (out.float() - want.float()).abs().max().item() <= AUG_TOL[dtype]
+
+
+def _strip_case(cuda, S, H, W, boxes, jitter, T=2, seed=0):
+    """Views of the given crop boxes on an H x W canvas: contrast at each of
+    the four positions in turn, blur on every other view (sigma 0.1 / 2.0),
+    gray on the second, flip on the third and fourth; jitter on or off."""
+    from video_rep_learning_tpu_torch.ops import augment as aug
+
+    gen = torch.Generator().manual_seed(seed)
+    BV = len(boxes)
+    fscal = torch.zeros(BV, 8)
+    fscal[:, 1:4] = torch.rand(BV, 3, generator=gen) + 0.5
+    fscal[:, 4] = torch.rand(BV, generator=gen) * 0.4 - 0.2
+    fscal[:, 0] = float(jitter)
+    fscal[:, 5] = torch.tensor([float(i % 2 == 0) for i in range(BV)])
+    fscal[1 % BV, 6] = 1
+    fscal[2 % BV:, 7] = 1
+    orders = torch.stack([torch.roll(torch.tensor([1, 0, 2, 3]), i)
+                          for i in range(BV)]).to(torch.int32)
+    sigmas = torch.tensor([0.1, 2.0] * BV)[:BV]
+    m = aug.ssl_matrices(torch.tensor(boxes, dtype=torch.float32), sigmas, H, W, S)
+    videos = torch.randint(0, 256, (BV, T, 3, H, W), generator=gen, dtype=torch.uint8)
+    args = (videos, m["rh"], m["rw"], fscal, orders, m["mh"], m["mw"])
+    return tuple(t.to(cuda) for t in args)
+
+
+# the crop kernel's strips and bands (csrc/photometric.cu, ops/photometric.py
+# crop_plan): output sizes whose 8 strips do not divide them (9: five strips
+# hold rows, three are empty; 100: 13-row strips and a 9-row last one; 512:
+# strips computed in chunks, the mean in a sweep of its own), boxes the crop
+# upsamples and boxes reading (nearly) all of a 512-row canvas
+STRIP_CASES = {
+    "S9": (9, 40, 36, [(0, 0, 40, 36), (3, 5, 30, 28), (10, 2, 12, 20), (1, 1, 38, 34)]),
+    "S100": (100, 256, 256, [(0, 0, 256, 256), (20, 30, 220, 200), (5, 7, 240, 249),
+                              (40, 60, 180, 190)]),
+    "S512": (512, 512, 512, [(0, 0, 512, 512), (7, 3, 480, 500), (30, 40, 450, 460),
+                              (1, 2, 510, 509)]),
+    "upsample": (224, 256, 256, [(100, 80, 40, 50), (0, 0, 16, 16), (200, 210, 56, 46),
+                                 (3, 9, 120, 90)]),
+    "most of 512": (224, 512, 512, [(0, 0, 512, 512), (2, 1, 507, 509), (5, 0, 500, 512),
+                                    (0, 6, 512, 490)]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("jitter", [True, False], ids=["jitter", "no_jitter"])
+@pytest.mark.parametrize("case", list(STRIP_CASES))
+def test_crop_strips_match_plain(cuda, case, jitter, dtype):
+    S, H, W, boxes = STRIP_CASES[case]
+    args = _strip_case(cuda, S, H, W, boxes, jitter)
+    before = photometric.crop_photometric.launches
+    out = photometric.crop_photometric(*args, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert photometric.crop_photometric.launches == before + 1
+    want = photometric.crop_photometric_reference(*args, out_dtype=dtype)
+    assert out.shape == want.shape and out.dtype == dtype
+    assert (out.float() - want.float()).abs().max().item() <= AUG_TOL[dtype]
+
+
+@pytest.mark.parametrize("case", ["S100", "S512", "most of 512"])
+def test_crop_photometric_is_deterministic(cuda, case):
+    """The frame mean is summed in a fixed order across the cluster: two
+    launches agree bit for bit."""
+    S, H, W, boxes = STRIP_CASES[case]
+    args = _strip_case(cuda, S, H, W, boxes, True, seed=1)
+    first = photometric.crop_photometric(*args, out_dtype=torch.float32)
+    second = photometric.crop_photometric(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

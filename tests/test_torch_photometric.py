@@ -273,3 +273,121 @@ def test_sample_ssl_batch_is_reproducible_and_in_range():
     assert bool(((top + h <= true_h) & (left + w <= true_w)).all())
     assert sorted(a["orders"][0].tolist()) == [0, 1, 2, 3]
     assert bool(((a["sigmas"] >= 0.1) & (a["sigmas"] < 2.0)).all())
+
+
+# ---------------------------------------------------------------------------
+# the crop kernel's plan (csrc/photometric.cu's crop_strip_kernel)
+# ---------------------------------------------------------------------------
+
+def _boxes(H, W, gen):
+    """(top, left, height, width) boxes inside an H x W canvas: the whole
+    canvas, a small one the crop upsamples, one reading most of the canvas,
+    and a few RandomResizedCrop draws."""
+    boxes = [(0, 0, H, W), (H // 3, W // 4, max(2, H // 16), max(2, W // 16)),
+             (2, 1, H - 5, W - 3)]
+    boxes += [tuple(float(b) for b in aug.sample_rrc_box(gen, H, W)) for _ in range(4)]
+    return boxes
+
+
+def _chunks(plan, S, halo):
+    """Every range of output rows a block stages: a strip of one chunk its
+    rows; a chunked strip each chunk, with the blur's halo (clipped to the
+    frame) and without."""
+    for y0 in range(0, S, plan.rows):
+        y1 = min(S, y0 + plan.rows)
+        for c0 in range(y0, y1, plan.chunk):
+            c1 = min(y1, c0 + plan.chunk)
+            yield c0, c1
+            if plan.chunk < plan.rows:
+                yield max(0, c0 - halo), min(S, c1 + halo)
+
+
+def _band(idx, w, ra, rb):
+    """Rows (or columns) [lo, hi + 1] the taps of outputs [ra, rb) read."""
+    live = (w[ra:rb] != 0).any(-1)
+    sel = idx[ra:rb][live]
+    return int(sel.max()) + 2 - int(sel.min())
+
+
+@pytest.mark.parametrize("S,H,W", [(9, 40, 36), (100, 256, 256), (224, 256, 256),
+                                   (224, 512, 512), (512, 512, 512), (224, 1024, 768)])
+def test_crop_plan_holds_every_band(S, H, W):
+    """The plan covers the frame with CROP_STRIPS strips, fits the H100's
+    shared memory, and its band holds the canvas rows and columns that any
+    staged range of output rows reads, for boxes that upsample, that read
+    (nearly) the whole canvas and that RandomResizedCrop draws."""
+    plan = ph.crop_plan(S, H, W)
+    assert plan.rows * ph.CROP_STRIPS >= S and 1 <= plan.chunk <= plan.rows
+    assert 1 <= plan.vrows <= min(plan.chunk, ph.CROP_VROWS)
+    assert plan.smem == ph.crop_smem(S, ph.pre_rows(S, plan.rows, plan.chunk),
+                                     plan.band_rows, plan.band_cols,
+                                     plan.vrows) <= ph.CROP_SMEM
+    assert plan.band_cols % 16 == 0 and plan.band_cols >= W
+    gen = torch.Generator().manual_seed(S)
+    for top, left, h, w in _boxes(H, W, gen):
+        ridx, rwt = ph.resample_taps(aug._rrc_matrix(H, S, h, top))
+        cidx, cwt = ph.resample_taps(aug._rrc_matrix(W, S, w, left))
+        assert _band(cidx, cwt, 0, S) <= plan.band_cols
+        for ra, rb in _chunks(plan, S, ph.CROP_HALO):
+            assert _band(ridx, rwt, ra, rb) <= plan.band_rows, (top, h, ra, rb)
+
+
+def test_crop_plan_single_pass_at_the_training_shape():
+    """At S 224 on a 256 or 512 canvas a strip is one chunk (the contrast mean
+    from the values in shared memory, no second sweep), and on the 256 one
+    three blocks fit an SM's 228 KB; S 512 is chunked."""
+    plan = ph.crop_plan(224, 256, 256)
+    assert plan[:2] == (14, 14) and 3 * plan.smem <= 228 * 1024
+    assert ph.crop_plan(224, 512, 512)[:2] == (14, 14)
+    plan = ph.crop_plan(512, 512, 512)
+    assert plan.rows == 32 and plan.chunk < plan.rows
+
+
+def _crop_args(S=32, H=40, W=44, T=1, dtype=torch.uint8):
+    BV = 2
+    videos = torch.zeros(BV, T, 3, H, W, dtype=dtype)
+    rh, rw = torch.zeros(BV, S, H), torch.zeros(BV, W, S)
+    fscal, orders = torch.zeros(BV, 8), torch.zeros(BV, 4, dtype=torch.int32)
+    mh, mw = torch.zeros(BV, S, S), torch.zeros(BV, S, S)
+    return videos, rh, rw, fscal, orders, mh, mw
+
+
+CROP_REFUSALS = {  # case: (the arguments, what the refusal names)
+    "S 8": (_crop_args(S=8), "output size 8"),
+    "S 513": (_crop_args(S=513, H=4, W=4), "output size 513"),
+    "2048 canvas": (_crop_args(S=224, H=2048, W=2048), "does not fit"),
+    "fp32 frames": (_crop_args(dtype=torch.float32), "uint8"),
+    "65536 frames": (_crop_args(H=2, W=2, T=65536), "65535"),
+}
+
+
+@pytest.mark.parametrize("case", list(CROP_REFUSALS))
+def test_crop_kernel_refuses_before_any_launch(monkeypatch, case):
+    """What crop_strip_kernel does not take (S outside 9..512, a canvas
+    whose band does not fit shared memory even a row at a time, frames other
+    than uint8, more frames a view than the grid's 65535) is refused before
+    the library is built or launched: the device test is forced to say
+    "kernel" on these CPU tensors, and reaching the library fails the
+    test."""
+    def no_library(*args, **kwargs):
+        raise AssertionError("the wrapper reached the kernel")
+
+    monkeypatch.setattr(ph, "use_kernel", lambda *args: True)
+    monkeypatch.setattr(ph, "_library", no_library)
+    args, match = CROP_REFUSALS[case]
+    before = ph.crop_photometric.launches
+    with pytest.raises(ValueError, match=match):
+        ph.crop_photometric(*args, out_dtype=torch.bfloat16)
+    assert ph.crop_photometric.launches == before
+
+
+def test_crop_kernel_takes_a_planned_canvas(monkeypatch):
+    """The same forced route with a canvas the plan takes reaches the
+    library."""
+    def no_library(*args, **kwargs):
+        raise AssertionError("the wrapper reached the kernel")
+
+    monkeypatch.setattr(ph, "use_kernel", lambda *args: True)
+    monkeypatch.setattr(ph, "_library", no_library)
+    with pytest.raises(AssertionError, match="reached the kernel"):
+        ph.crop_photometric(*_crop_args(S=224, H=1024, W=768), out_dtype=torch.bfloat16)

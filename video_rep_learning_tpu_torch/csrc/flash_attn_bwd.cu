@@ -7,333 +7,589 @@
 // its streaming path took): one backward covers every key length.
 //
 // The math is the TPU kernel's: p = exp(s - lse) recomputed from the
-// forward's LSE, delta = rowsum(dO * O) (a pre-pass here), dv = p^T dO,
-// dp = dO v^T, ds = p (dp - delta) scale, dq = ds k, dk = ds^T q. A masked key
-// scores the finite NEG_INF, as in the forward, so a fully masked row keeps
-// its p and contributes to dv (and, as on the TPU, to dq and dk); keys past Sk
-// in a ragged tile take p = 0. With bf16 inputs p is rounded to bf16 before
-// p^T dO and ds before its two products, as the TPU kernel rounds them to the
-// input type; every sum is fp32.
+// forward's LSE, delta = rowsum(dO * O), dv = p^T dO, dp = dO v^T,
+// ds = p (dp - delta) scale, dq = ds k, dk = ds^T q. A masked key scores the
+// finite NEG_INF, as in the forward, so a fully masked row keeps its p and
+// contributes to dv (and, as on the TPU, to dq and dk); keys past Sk take
+// p = 0. With bf16 inputs p is rounded to bf16 before p^T dO and ds before
+// its two products, as the TPU kernel rounds them to the input type; every
+// sum is fp32.
 //
-// Accumulation is deterministic, with no atomics: one launch over
-// (k tile, h, b) walks all q tiles and writes dk, dv; another over
-// (q tile, h, b) walks all k tiles and writes dq. Each recomputes p and dp.
+// What bounds it on the H100. The CARL step calls it at (2, 8, 240, 32) and
+// the MV-Former encoder at (2, 8, 720, 32), both fp32: 0.02-0.2 GFLOP over
+// 16 (batch, head) pairs, far too little work to fill 132 SMs with 64-row
+// tiles, so latency and the card's fill bound it, not tensor-core or HBM
+// throughput. The design:
+// - One launch of two block roles, with no atomics and no second pass:
+//   blocks [0, n_kv) own 32 keys each, walk every q row and write dk, dv;
+//   blocks [n_kv, n_kv + n_q) own 32 q rows each, walk every key and write
+//   dq. Each role recomputes s and dp. That is (8 + 8) x 16 = 256 blocks of
+//   four warps at (2, 8, 240, 32).
+// - The four warps of a block are two row groups of 16 owned rows times two
+//   halves of each 64-row step of the walk; the halves' partial sums are
+//   added in a fixed order (half 0 + half 1) through shared memory at the
+//   end, so every output is deterministic.
+// - delta is folded in: the dk/dv role stages the O tile beside dO and each
+//   lane sums its row's dO * O; the dq role does the same once for its own
+//   rows. No scratch tensor, no pre-pass.
+// - Every product is on the tensor cores through mma.sync: bf16 as
+//   m16n8k16; fp32 as 3xTF32 m16n8k8 (each operand split into a tf32 hi and
+//   lo, and hi*lo' + lo*hi' + hi*hi' summed in fp32), which keeps about
+//   fp32's accuracy where one TF32 product would lose ~3 digits. The
+//   accumulators of s^T / p^T (keys as rows) are the A operand of p^T dO and
+//   ds^T q straight from registers, with no trip through shared memory; for
+//   TF32 that fixes the k order of those products at (2t, 2t + 1), which the
+//   B operand follows (`cols_b`).
+// - The walked tiles are double buffered with cp.async: step i + 1 lands
+//   while step i computes. Shared-memory rows are padded (fp32: D + 4, bf16:
+//   D + 8 elements) so that both the row and the column fragment reads are
+//   free of bank conflicts.
 //
-// What bounds it on the H100: the CARL training step calls it at
-// (2, 8, 240, 32) fp32, about 0.2 GFLOP a layer over 64 blocks per launch:
-// far under one wave on 132 SMs, so latency (shared-memory loads, the
-// __syncthreads between the tile phases) bounds it, not tensor-core or HBM
-// throughput. Like the forward, it is fp32 FMA on CUDA cores with a 4 x 4
-// register micro-tile per thread and padded shared-memory tiles; wgmma/TMA
-// come later.
-//
-// Layout: q, dO, out (B, H, Sq, D), k, v (B, H, Sk, D), contiguous, fp32 or
-// bf16; mask (B, Sk) fp32 or null; lse and delta (B, H, Sq) fp32 (delta is
-// scratch the wrapper allocates). Launches on the caller's stream, allocates
-// nothing, returns cudaGetLastError().
+// Layout: q, dO, out (B, H, Sq, D), k, v (B, H, Sk, D), contiguous and
+// 16-byte aligned, fp32 or bf16; mask (B, Sk) fp32 or null; lse (B, H, Sq)
+// fp32. Launches on the caller's stream, allocates nothing, returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;  // q rows and keys per tile
-constexpr int kThreads = 256;
+using vrl::to_f32;
+
+constexpr int kOwn = 32;          // rows a block owns: keys or q rows
+constexpr int kHalf = 32;         // rows of the walk a warp takes a step
+constexpr int kStep = 2 * kHalf;  // rows of the walk a step stages
+constexpr int kThreads = 128;     // 2 row groups x 2 halves
 constexpr float kNegInf = -0.7f * 3.402823466e38f;  // -0.7 * fp32 max
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-// the TPU kernel's cast of p and ds to the input type before a product
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
+// --- cp.async -------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// --- the tensor-core products ---------------------------------------------
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// One warp's fragments of a 16 x kK A, a kK x 8 B and the 16 x 8 fp32
+// accumulator (c[0], c[1]: row g, columns 2t, 2t + 1; c[2], c[3]: row g + 8),
+// g = lane / 4, t = lane % 4. A product's k order is free as long as A and B
+// follow the same one: `rows_a` / `rows_b` read k along a shared-memory row
+// in the natural order; `acc_a` takes an accumulator tile as A, and
+// `cols_b` reads B down the rows in that tile's order.
 template <typename T>
-__global__ void delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
-                             float* __restrict__ delta, size_t rows, int D) {
-  const size_t r = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const T* a = dout + r * D;
-  const T* b = out + r * D;
+struct Mma;
+
+template <>
+struct Mma<float> {  // 3xTF32, m16n8k8
+  static constexpr int kK = 8;
+  struct A { uint32_t hi[4], lo[4]; };
+  struct B { uint32_t hi[2], lo[2]; };
+  // A[m][k] = s[(r0 + m) * ld + k0 + k]
+  static __device__ __forceinline__ A rows_a(const float* s, int ld, int r0, int k0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const float* p = s + (r0 + g) * ld + k0 + t;
+    A a;
+    split(p[0], a.hi[0], a.lo[0]);
+    split(p[8 * ld], a.hi[1], a.lo[1]);
+    split(p[4], a.hi[2], a.lo[2]);
+    split(p[8 * ld + 4], a.hi[3], a.lo[3]);
+    return a;
+  }
+  // B[k][n] = s[(n0 + n) * ld + k0 + k]
+  static __device__ __forceinline__ B rows_b(const float* s, int ld, int n0, int k0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const float* p = s + (n0 + g) * ld + k0 + t;
+    B b;
+    split(p[0], b.hi[0], b.lo[0]);
+    split(p[4], b.hi[1], b.lo[1]);
+    return b;
+  }
+  // B[k][n] = s[(k0 + k) * ld + n0 + n], k in `acc_a`'s order: position t
+  // is row 2t, position t + 4 row 2t + 1
+  static __device__ __forceinline__ B cols_b(const float* s, int ld, int k0, int n0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const float* p = s + (k0 + 2 * t) * ld + n0 + g;
+    B b;
+    split(p[0], b.hi[0], b.lo[0]);
+    split(p[ld], b.hi[1], b.lo[1]);
+    return b;
+  }
+  // A = accumulator tile kk (16 x 8): k position t is its column 2t, t + 4
+  // its column 2t + 1
+  static __device__ __forceinline__ A acc_a(const float (*c)[4], int kk) {
+    A a;
+    split(c[kk][0], a.hi[0], a.lo[0]);
+    split(c[kk][2], a.hi[1], a.lo[1]);
+    split(c[kk][1], a.hi[2], a.lo[2]);
+    split(c[kk][3], a.hi[3], a.lo[3]);
+    return a;
+  }
+  static __device__ __forceinline__ void mma(float c[4], const A& a, const B& b) {
+    mma_tf32(c, a.lo, b.hi);
+    mma_tf32(c, a.hi, b.lo);
+    mma_tf32(c, a.hi, b.hi);
+  }
+};
+
+template <>
+struct Mma<__nv_bfloat16> {  // m16n8k16
+  using bf16 = __nv_bfloat16;
+  static constexpr int kK = 16;
+  struct A { uint32_t r[4]; };
+  struct B { uint32_t r[2]; };
+  static __device__ __forceinline__ uint32_t u32(const bf16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  static __device__ __forceinline__ A rows_a(const bf16* s, int ld, int r0, int k0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const bf16* p = s + (r0 + g) * ld + k0 + 2 * t;
+    return A{{u32(p), u32(p + 8 * ld), u32(p + 8), u32(p + 8 * ld + 8)}};
+  }
+  static __device__ __forceinline__ B rows_b(const bf16* s, int ld, int n0, int k0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
+    return B{{u32(p), u32(p + 8)}};
+  }
+  static __device__ __forceinline__ B cols_b(const bf16* s, int ld, int k0, int n0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const bf16* p = s + (k0 + 2 * t) * ld + n0 + g;
+    return B{{pack_raw(p[0], p[ld]), pack_raw(p[8 * ld], p[9 * ld])}};
+  }
+  // accumulator tiles 2kk, 2kk + 1 rounded to bf16: the TPU kernel's cast
+  // of p and ds to the input type before their products
+  static __device__ __forceinline__ A acc_a(const float (*c)[4], int kk) {
+    const float* x = c[2 * kk];
+    const float* y = c[2 * kk + 1];
+    return A{{pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]), pack_bf16(y[0], y[1]),
+              pack_bf16(y[2], y[3])}};
+  }
+  static __device__ __forceinline__ void mma(float c[4], const A& a, const B& b) {
+    mma_bf16(c, a.r, b.r);
+  }
+};
+
+// --- shared memory ----------------------------------------------------------
+
+template <int D, typename T>
+struct Smem {
+  static constexpr int kLd = D + (sizeof(T) == 4 ? 4 : 8);  // padded row, elements
+  static constexpr int kTile = kLd * sizeof(T);              // bytes a row
+  // dk/dv role: K, V owned; Q, dO, O and lse walked, two buffers
+  static constexpr int kKvStep = 3 * kStep * kTile + kStep * 4;
+  static constexpr int kKv = 2 * kOwn * kTile + 2 * kKvStep;
+  // dq role: Q, dO, O owned; K, V and the mask walked, two buffers
+  static constexpr int kQStep = 2 * kStep * kTile + kStep * 4;
+  static constexpr int kQ = 3 * kOwn * kTile + 2 * kQStep;
+  static constexpr int kBytes = kKv > kQ ? kKv : kQ;
+  static_assert(kTile % 16 == 0, "cp.async needs 16-byte rows");
+};
+
+// Rows [r0, r0 + R) of a (n, D) tensor into padded shared rows, zero past n.
+template <int D, typename T, int R>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int r0, int n) {
+  constexpr int kLd = Smem<D, T>::kLd;
+  constexpr int kChunk = 16 / sizeof(T);
+  constexpr int kPerRow = D / kChunk;
+  for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * kChunk;
+    const bool in = r0 + r < n;
+    cp_async16(dst + r * kLd + c, in ? src + (size_t)(r0 + r) * D + c : src, in);
+  }
+}
+
+// Values [r0, r0 + kStep) of an fp32 vector, zero past n.
+__device__ __forceinline__ void stage_vec(float* dst, const float* src, int r0, int n) {
+  for (int i = threadIdx.x; i < kStep; i += kThreads) {
+    const bool in = r0 + i < n;
+    cp_async4(dst + i, in ? src + r0 + i : src, in);
+  }
+}
+
+// rowsum(dO * O) of shared row `r`, the columns rotated by the row so that
+// the lanes of a warp read different banks.
+template <int D, typename T>
+__device__ __forceinline__ float row_delta(const T* dO, const T* O, int r) {
+  constexpr int kLd = Smem<D, T>::kLd;
+  const T* a = dO + r * kLd;
+  const T* b = O + r * kLd;
   float acc = 0.f;
-  for (int d = 0; d < D; ++d) acc = fmaf(to_f32(a[d]), to_f32(b[d]), acc);
-  delta[r] = acc;
-}
-
-// Load a (kBlock, D) tile of rows [r0, r0 + kBlock) into padded shared memory
-// (row stride D + 1), zero past n.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0, int n) {
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = (r0 + r < n) ? to_f32(src[(size_t)(r0 + r) * D + c]) : 0.f;
-  }
-}
-
-// For the (q tile, k tile) pair in shared memory, thread (tr, tc) computes
-// p and ds for q rows tr + 16 i and keys tc + 16 j.
-template <int D, typename T>
-__device__ __forceinline__ void scores(const float* Qs, const float* Ks, const float* dOs,
-                                       const float* Vs, const float* lse_s,
-                                       const float* delta_s, const float* valid,
-                                       float scale, float p[4][4], float ds[4][4]) {
-  constexpr int kS = D + 1;
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(tr + 16 * i) * kS + d];
-      dov[i] = dOs[(tr + 16 * i) * kS + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = Ks[(tc + 16 * j) * kS + d];
-      vv[j] = Vs[(tc + 16 * j) * kS + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-      }
+  for (int i = 0; i < D; ++i) {
+    const int c = (i + r) & (D - 1);
+    acc = fmaf(to_f32(a[c]), to_f32(b[c]), acc);
   }
+  return acc;
+}
+
+__device__ __forceinline__ float probability(float s, float flag, float lse, float scale) {
+  // flag 1: an attended key; 0: masked, scores NEG_INF; -1: past Sk
+  return flag > 0.f ? __expf(s * scale - lse) : (flag == 0.f ? __expf(kNegInf - lse) : 0.f);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// After the walk: the half-1 warps hand their accumulators to the half-0
+// warps of the same row group, which add them (half 0 + half 1, a fixed
+// order) into `acc`. `red` is the walk's (now idle) shared memory.
+template <int N>
+__device__ __forceinline__ void sum_halves(float (&acc)[N][4], float* red, int rg, int h) {
+  const int lane = threadIdx.x & 31;
+  __syncthreads();  // every warp is past its last read of the walk's tiles
+  if (h == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l = lse_s[tr + 16 * i], dl = delta_s[tr + 16 * i];
+    for (int j = 0; j < N; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float f = valid[tc + 16 * j];
-      const float pij = f > 0.f ? expf(s[i][j] * scale - l)
-                                : (f == 0.f ? expf(kNegInf - l) : 0.f);
-      p[i][j] = pij;
-      ds[i][j] = pij * (dp[i][j] - dl) * scale;
+      for (int e = 0; e < 4; ++e) red[((4 * j + e) * 2 + rg) * 32 + lane] = acc[j][e];
+  }
+  __syncthreads();
+  if (h == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += red[((4 * j + e) * 2 + rg) * 32 + lane];
+  }
+}
+
+// Rows rg * 16 + g (+ 8) of a 16 x D accumulator into out rows r0 + ..., up
+// to n.
+template <int D, typename T>
+__device__ __forceinline__ void store_rows(T* out, const float (*acc)[4], int r0, int n) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r < n) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store2(out + (size_t)r * D + 8 * j + 2 * t, acc[j][2 * half], acc[j][2 * half + 1]);
     }
   }
 }
 
-__device__ __forceinline__ void load_rowstats(float* lse_s, float* delta_s, const float* lse,
-                                              const float* delta, int q0, int Sq) {
-  if (threadIdx.x < kBlock) {
-    const int r = q0 + threadIdx.x;
-    // rows past Sq: zero dO and Q make their p and ds contribute nothing
-    lse_s[threadIdx.x] = r < Sq ? lse[r] : 0.f;
-    delta_s[threadIdx.x] = r < Sq ? delta[r] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_valid(float* valid, const float* mb, int k0, int Sk) {
-  if (threadIdx.x < kBlock) {
-    const int key = k0 + threadIdx.x;
-    valid[threadIdx.x] = key >= Sk ? -1.f : (mb == nullptr || mb[key] != 0.f) ? 1.f : 0.f;
-  }
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // Q, dO, K, V tiles (padded), one (kBlock, kBlock + 1) tile of p or ds per
-  // kind, lse, delta and the key flags
-  return sizeof(float) * (4 * kBlock * (D + 1) + 2 * kBlock * (kBlock + 1) + 3 * kBlock);
-}
+// --- the dk / dv role: 32 keys owned, every q row walked ------------------
 
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const float* __restrict__ mask, const T* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Sk, float scale) {
-  constexpr int kS = D + 1, kP = kBlock + 1, kCols = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kBlock * kS;
-  float* Ks = dOs + kBlock * kS;
-  float* Vs = Ks + kBlock * kS;
-  float* Ps = Vs + kBlock * kS;
-  float* dSs = Ps + kBlock * kP;
-  float* lse_s = dSs + kBlock * kP;
-  float* delta_s = lse_s + kBlock;
-  float* valid = delta_s + kBlock;
+__device__ __forceinline__ void dkdv_role(unsigned char* smem, const T* q, const T* k,
+                                          const T* v, const float* mask, const T* out,
+                                          const T* dout, const float* lse, T* dk, T* dv,
+                                          int k0, int Sq, int Sk, float scale) {
+  using M = Mma<T>;
+  using L = Smem<D, T>;
+  constexpr int kLd = L::kLd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = warp & 1, h = warp >> 1, g = lane >> 2, t = lane & 3;
 
-  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-  const int k0 = blockIdx.x * kBlock;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const float* mb = mask ? mask + (size_t)blockIdx.z * Sk : nullptr;
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + kOwn * kLd;
+  unsigned char* walk = reinterpret_cast<unsigned char*>(Vs + kOwn * kLd);
+  auto buf = [&](int b, int i) {  // i: 0 Q, 1 dO, 2 O
+    return reinterpret_cast<T*>(walk + b * L::kKvStep) + i * kStep * kLd;
+  };
+  auto lse_buf = [&](int b) {
+    return reinterpret_cast<float*>(walk + b * L::kKvStep + 3 * kStep * L::kTile);
+  };
 
-  load_tile<D>(Ks, k + bh * Sk * D, k0, Sk);
-  load_tile<D>(Vs, v + bh * Sk * D, k0, Sk);
-  load_valid(valid, mb, k0, Sk);
+  stage_rows<D, T, kOwn>(Ks, k, k0, Sk);
+  stage_rows<D, T, kOwn>(Vs, v, k0, Sk);
+  auto stage = [&](int b, int q0) {
+    stage_rows<D, T, kStep>(buf(b, 0), q, q0, Sq);
+    stage_rows<D, T, kStep>(buf(b, 1), dout, q0, Sq);
+    stage_rows<D, T, kStep>(buf(b, 2), out, q0, Sq);
+    stage_vec(lse_buf(b), lse, q0, Sq);
+  };
+  stage(0, 0);
+  cp_async_commit();
 
-  float acc_k[4][kCols], acc_v[4][kCols];
+  // the flags of this thread's two keys
+  float flag[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + rg * 16 + g + 8 * i;
+    flag[i] = key >= Sk ? -1.f : (mask == nullptr || mask[key] != 0.f) ? 1.f : 0.f;
+  }
 
-  for (int q0 = 0; q0 < Sq; q0 += kBlock) {
-    __syncthreads();  // the previous q tile's reads are done
-    load_tile<D>(Qs, q + bh * Sq * D, q0, Sq);
-    load_tile<D>(dOs, dout + bh * Sq * D, q0, Sq);
-    load_rowstats(lse_s, delta_s, lse + bh * Sq, delta + bh * Sq, q0, Sq);
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+
+  const int steps = (Sq + kStep - 1) / kStep;
+  for (int it = 0; it < steps; ++it) {
+    const int b = it & 1;
+    if (it + 1 < steps) {
+      stage(b ^ 1, (it + 1) * kStep);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    float p[4][4], ds[4][4];
-    scores<D, T>(Qs, Ks, dOs, Vs, lse_s, delta_s, valid, scale, p, ds);
+    const T* Qt = buf(b, 0) + h * kHalf * kLd;
+    const T* dOt = buf(b, 1) + h * kHalf * kLd;
+    const T* Ot = buf(b, 2) + h * kHalf * kLd;
+    // s^T and dp^T: 16 keys x this half's 32 q rows
+    float s[kHalf / 8][4], dp[kHalf / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < kHalf / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ps[(tr + 16 * i) * kP + tc + 16 * j] = round_to(p[i][j], T());
-        dSs[(tr + 16 * i) * kP + tc + 16 * j] = round_to(ds[i][j], T());
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += M::kK) {
+      const typename M::A ak = M::rows_a(Ks, kLd, rg * 16, kk);
+      const typename M::A av = M::rows_a(Vs, kLd, rg * 16, kk);
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        M::mma(s[j], ak, M::rows_b(Qt, kLd, 8 * j, kk));
+        M::mma(dp[j], av, M::rows_b(dOt, kLd, 8 * j, kk));
       }
-    __syncthreads();
-    // thread (tr, tc) owns keys tr + 16 i, columns tc + 16 c
-    const int qn = min(kBlock, Sq - q0);
-    for (int r = 0; r < qn; ++r) {
-      float pv[4], dsv[4], dov[kCols], qv[kCols];
+    }
+    // lane r holds q row r's LSE and delta; columns fetch theirs by shuffle
+    const int r = lane & (kHalf - 1);
+    const float lse_r = lse_buf(b)[h * kHalf + r];
+    const float delta_r = row_delta<D, T>(dOt, Ot, r);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[r * kP + tr + 16 * i];
-        dsv[i] = dSs[r * kP + tr + 16 * i];
-      }
+    for (int j = 0; j < kHalf / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        dov[c] = dOs[r * kS + tc + 16 * c];
-        qv[c] = Qs[r * kS + tc + 16 * c];
-      }
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * t + c;
+        const float l = __shfl_sync(0xffffffffu, lse_r, col);
+        const float dl = __shfl_sync(0xffffffffu, delta_r, col);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          acc_v[i][c] = fmaf(pv[i], dov[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(dsv[i], qv[c], acc_k[i][c]);
+        for (int i = 0; i < 2; ++i) {
+          const int e = 2 * i + c;
+          const float p = probability(s[j][e], flag[i], l, scale);
+          dp[j][e] = p * (dp[j][e] - dl) * scale;
+          s[j][e] = p;
         }
-    }
-  }
-
+      }
+    // dv += p^T dO, dk += ds^T q over this half's 32 q rows
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + tr + 16 * i;
-    if (key < Sk) {
+    for (int kk = 0; kk < kHalf / M::kK; ++kk) {
+      const typename M::A ap = M::acc_a(s, kk);
+      const typename M::A ad = M::acc_a(dp, kk);
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        store(dk + (bh * Sk + key) * D + tc + 16 * c, acc_k[i][c]);
-        store(dv + (bh * Sk + key) * D + tc + 16 * c, acc_v[i][c]);
+      for (int n = 0; n < D / 8; ++n) {
+        M::mma(acc_v[n], ap, M::cols_b(dOt, kLd, kk * M::kK, 8 * n));
+        M::mma(acc_k[n], ad, M::cols_b(Qt, kLd, kk * M::kK, 8 * n));
       }
     }
+    __syncthreads();  // buffer b is free for step it + 2
+  }
+
+  float* red = reinterpret_cast<float*>(walk);
+  sum_halves(acc_k, red, rg, h);
+  sum_halves(acc_v, red, rg, h);
+  if (h == 0) {
+    store_rows<D, T>(dk, acc_k, k0 + rg * 16, Sk);
+    store_rows<D, T>(dv, acc_v, k0 + rg * 16, Sk);
   }
 }
 
+// --- the dq role: 32 q rows owned, every key walked -----------------------
+
+template <int D, typename T>
+__device__ __forceinline__ void dq_role(unsigned char* smem, const T* q, const T* k,
+                                        const T* v, const float* mask, const T* out,
+                                        const T* dout, const float* lse, T* dq, int q0,
+                                        int Sq, int Sk, float scale) {
+  using M = Mma<T>;
+  using L = Smem<D, T>;
+  constexpr int kLd = L::kLd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = warp & 1, h = warp >> 1, g = lane >> 2, t = lane & 3;
+
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + kOwn * kLd;
+  T* Os = dOs + kOwn * kLd;
+  unsigned char* walk = reinterpret_cast<unsigned char*>(Os + kOwn * kLd);
+  auto buf = [&](int b, int i) {  // i: 0 K, 1 V
+    return reinterpret_cast<T*>(walk + b * L::kQStep) + i * kStep * kLd;
+  };
+  auto mask_buf = [&](int b) {
+    return reinterpret_cast<float*>(walk + b * L::kQStep + 2 * kStep * L::kTile);
+  };
+
+  stage_rows<D, T, kOwn>(Qs, q, q0, Sq);
+  stage_rows<D, T, kOwn>(dOs, dout, q0, Sq);
+  stage_rows<D, T, kOwn>(Os, out, q0, Sq);
+  auto stage = [&](int b, int key0) {
+    stage_rows<D, T, kStep>(buf(b, 0), k, key0, Sk);
+    stage_rows<D, T, kStep>(buf(b, 1), v, key0, Sk);
+    if (mask != nullptr) stage_vec(mask_buf(b), mask, key0, Sk);
+  };
+  stage(0, 0);
+  cp_async_commit();
+
+  // this thread's two q rows: the forward's LSE (0 past Sq, where dO and q
+  // are zero and p, ds contribute nothing)
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + rg * 16 + g + 8 * i;
+    lse_r[i] = r < Sq ? lse[r] : 0.f;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int steps = (Sk + kStep - 1) / kStep;
+  for (int it = 0; it < steps; ++it) {
+    const int b = it & 1;
+    if (it + 1 < steps) {
+      stage(b ^ 1, (it + 1) * kStep);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {  // the owned tiles landed with the first step
+      const float d = row_delta<D, T>(dOs, Os, rg * 16 + (lane & 15));
+      delta_r[0] = __shfl_sync(0xffffffffu, d, g);
+      delta_r[1] = __shfl_sync(0xffffffffu, d, g + 8);
+    }
+    const int key0 = it * kStep + h * kHalf;
+    const T* Kt = buf(b, 0) + h * kHalf * kLd;
+    const T* Vt = buf(b, 1) + h * kHalf * kLd;
+    const float* mt = mask_buf(b) + h * kHalf;
+    // s and dp: 16 q rows x this half's 32 keys
+    float s[kHalf / 8][4], dp[kHalf / 8][4];
+#pragma unroll
+    for (int j = 0; j < kHalf / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += M::kK) {
+      const typename M::A aq = M::rows_a(Qs, kLd, rg * 16, kk);
+      const typename M::A ao = M::rows_a(dOs, kLd, rg * 16, kk);
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        M::mma(s[j], aq, M::rows_b(Kt, kLd, 8 * j, kk));
+        M::mma(dp[j], ao, M::rows_b(Vt, kLd, 8 * j, kk));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kHalf / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * t + c;
+        const float flag = key0 + col >= Sk ? -1.f
+                           : (mask == nullptr || mt[col] != 0.f) ? 1.f : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 2 * i + c;
+          const float p = probability(s[j][e], flag, lse_r[i], scale);
+          dp[j][e] = p * (dp[j][e] - delta_r[i]) * scale;
+        }
+      }
+    // dq += ds k over this half's 32 keys
+#pragma unroll
+    for (int kk = 0; kk < kHalf / M::kK; ++kk) {
+      const typename M::A ad = M::acc_a(dp, kk);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) M::mma(acc[n], ad, M::cols_b(Kt, kLd, kk * M::kK, 8 * n));
+    }
+    __syncthreads();  // buffer b is free for step it + 2
+  }
+
+  sum_halves(acc, reinterpret_cast<float*>(walk), rg, h);
+  if (h == 0) store_rows<D, T>(dq, acc, q0 + rg * 16, Sq);
+}
+
+// Blocks [0, n_kv) take the dk / dv role, the rest the dq role; y is the
+// head, z the batch row.
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const float* __restrict__ mask, const T* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int H, int Sq, int Sk, float scale) {
-  constexpr int kS = D + 1, kP = kBlock + 1, kCols = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kBlock * kS;
-  float* Ks = dOs + kBlock * kS;
-  float* Vs = Ks + kBlock * kS;
-  float* dSs = Vs + kBlock * kS;
-  float* lse_s = dSs + 2 * kBlock * kP;
-  float* delta_s = lse_s + kBlock;
-  float* valid = delta_s + kBlock;
-
-  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-  const int q0 = blockIdx.x * kBlock;
+flash_bwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ mask, const T* __restrict__ out,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int H,
+                     int Sq, int Sk, int n_kv, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  const size_t qo = bh * Sq * D, ko = bh * Sk * D;
   const float* mb = mask ? mask + (size_t)blockIdx.z * Sk : nullptr;
-
-  load_tile<D>(Qs, q + bh * Sq * D, q0, Sq);
-  load_tile<D>(dOs, dout + bh * Sq * D, q0, Sq);
-  load_rowstats(lse_s, delta_s, lse + bh * Sq, delta + bh * Sq, q0, Sq);
-
-  float acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-
-  for (int k0 = 0; k0 < Sk; k0 += kBlock) {
-    __syncthreads();  // the previous k tile's reads are done
-    load_tile<D>(Ks, k + bh * Sk * D, k0, Sk);
-    load_tile<D>(Vs, v + bh * Sk * D, k0, Sk);
-    load_valid(valid, mb, k0, Sk);
-    __syncthreads();
-    float p[4][4], ds[4][4];
-    scores<D, T>(Qs, Ks, dOs, Vs, lse_s, delta_s, valid, scale, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dSs[(tr + 16 * i) * kP + tc + 16 * j] = round_to(ds[i][j], T());
-    __syncthreads();
-    // thread (tr, tc) owns q rows tr + 16 i, columns tc + 16 c
-    const int kn = min(kBlock, Sk - k0);
-    for (int key = 0; key < kn; ++key) {
-      float dsv[4], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(tr + 16 * i) * kP + key];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) kv[c] = Ks[key * kS + tc + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + tr + 16 * i;
-    if (r < Sq) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) store(dq + (bh * Sq + r) * D + tc + 16 * c, acc[i][c]);
-    }
-  }
+  if ((int)blockIdx.x < n_kv)
+    dkdv_role<D, T>(smem, q + qo, k + ko, v + ko, mb, out + qo, dout + qo, lse + bh * Sq,
+                    dk + ko, dv + ko, blockIdx.x * kOwn, Sq, Sk, scale);
+  else
+    dq_role<D, T>(smem, q + qo, k + ko, v + ko, mb, out + qo, dout + qo, lse + bh * Sq,
+                  dq + qo, (blockIdx.x - n_kv) * kOwn, Sq, Sk, scale);
 }
 
 template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask,
-                   const void* out, const void* dout, const void* lse, void* delta,
-                   void* dq, void* dk, void* dv, int B, int H, int Sq, int Sk, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  const size_t rows = (size_t)B * H * Sq;
-  delta_kernel<T><<<(unsigned)((rows + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      static_cast<const T*>(dout), static_cast<const T*>(out), static_cast<float*>(delta),
-      rows, D);
-  cudaError_t err = cudaGetLastError();
+                   const void* out, const void* dout, const void* lse, void* dq, void* dk,
+                   void* dv, int B, int H, int Sq, int Sk, float scale, cudaStream_t stream) {
+  constexpr int smem = Smem<D, T>::kBytes;
+  auto kernel = flash_bwd_mma_kernel<D, T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-
-  auto kv_kernel = dkdv_kernel<D, T>;
-  err = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kv_kernel<<<dim3((Sk + kBlock - 1) / kBlock, H, B), kThreads, smem, stream>>>(
+  const int n_kv = (Sk + kOwn - 1) / kOwn, n_q = (Sq + kOwn - 1) / kOwn;
+  kernel<<<dim3(n_kv + n_q, H, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(mask), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), H, Sq, Sk, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  auto q_kernel = dq_kernel<D, T>;
-  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  q_kernel<<<dim3((Sq + kBlock - 1) / kBlock, H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(mask), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq),
-      H, Sq, Sk, scale);
+      static_cast<const float*>(mask), static_cast<const T*>(out), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<T*>(dq), static_cast<T*>(dk),
+      static_cast<T*>(dv), H, Sq, Sk, n_kv, scale);
   return cudaGetLastError();
 }
 
@@ -344,27 +600,24 @@ extern "C" {
 // dtype: 0 = fp32, 1 = bf16. Returns a cudaError_t (0 = success);
 // cudaErrorInvalidValue for a head width or dtype the kernel does not take.
 int vrl_flash_attn_bwd(const void* q, const void* k, const void* v, const void* mask,
-                       const void* out, const void* dout, const void* lse, void* delta,
-                       void* dq, void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
-                       int dtype, float scale, void* stream) {
+                       const void* out, const void* dout, const void* lse, void* dq,
+                       void* dk, void* dv, int B, int H, int Sq, int Sk, int D, int dtype,
+                       float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sq < 1 || Sk < 1) return cudaErrorInvalidValue;
   if (dtype == 0 && D == 32)
-    return launch<32, float>(q, k, v, mask, out, dout, lse, delta, dq, dk, dv, B, H, Sq, Sk,
-                             scale, s);
+    return launch<32, float>(q, k, v, mask, out, dout, lse, dq, dk, dv, B, H, Sq, Sk, scale, s);
   if (dtype == 0 && D == 64)
-    return launch<64, float>(q, k, v, mask, out, dout, lse, delta, dq, dk, dv, B, H, Sq, Sk,
-                             scale, s);
+    return launch<64, float>(q, k, v, mask, out, dout, lse, dq, dk, dv, B, H, Sq, Sk, scale, s);
   if (dtype == 1 && D == 32)
-    return launch<32, __nv_bfloat16>(q, k, v, mask, out, dout, lse, delta, dq, dk, dv, B, H,
-                                     Sq, Sk, scale, s);
+    return launch<32, __nv_bfloat16>(q, k, v, mask, out, dout, lse, dq, dk, dv, B, H, Sq, Sk,
+                                     scale, s);
   if (dtype == 1 && D == 64)
-    return launch<64, __nv_bfloat16>(q, k, v, mask, out, dout, lse, delta, dq, dk, dv, B, H,
-                                     Sq, Sk, scale, s);
+    return launch<64, __nv_bfloat16>(q, k, v, mask, out, dout, lse, dq, dk, dv, B, H, Sq, Sk,
+                                     scale, s);
   return cudaErrorInvalidValue;
 }
 
-const char* vrl_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 }  // extern "C"
+
+VRL_ERROR_STRING_EXPORT

@@ -115,7 +115,7 @@ def _check_cuda_inputs(q, k, v, kv_mask):
 def _library(name):
     lib = cuda_build.load(name)
     fn = getattr(lib, "vrl_" + name)
-    n_ptr = 6 if name == "flash_attn_fwd" else 11
+    n_ptr = 6 if name == "flash_attn_fwd" else 10
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -162,13 +162,12 @@ flash_attention_fwd.launches = 0
 def flash_attention_bwd(q, k, v, kv_mask, out, lse, grad_out, sm_scale=1.0):
     """(dq, dk, dv) from the forward's `out` and `lse`; see
     `attention_backward_reference` for the math. CUDA tensors go through the
-    kernel, CPU tensors through the plain version.
-    `flash_attention_bwd.launches` counts kernel launches."""
-    if q.device.type == "cpu":
+    kernel (one launch; it takes delta = rowsum(dO * O) from `out` itself),
+    CPU tensors through the plain version. `flash_attention_bwd.launches`
+    counts kernel launches."""
+    if not use_kernel("flash_attention_bwd", q):
         return attention_backward_reference(q, k, v, kv_mask, out, lse,
                                             grad_out, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check_cuda_inputs(q, k, v, kv_mask)
     B, H, Sq, d = q.shape
     for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
@@ -178,20 +177,24 @@ def flash_attention_bwd(q, k, v, kv_mask, out, lse, grad_out, sm_scale=1.0):
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous {tuple(shape)} {dtype} on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    # the kernel stages its tiles with 16-byte copies (cp.async)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("grad_out", grad_out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the backward "
+                             f"kernel")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if Sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
     lib = _library("flash_attn_bwd")
     with torch.cuda.device(q.device):
         err = lib.vrl_flash_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            grad_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, H, Sq, k.shape[2], d,
-            _DTYPE_CODES[q.dtype], float(sm_scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            grad_out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, Sq, k.shape[2], d, _DTYPE_CODES[q.dtype],
+            float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("flash_attn_bwd launch failed: "
                            + lib.vrl_cuda_error_string(err).decode())

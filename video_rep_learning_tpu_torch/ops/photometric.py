@@ -20,6 +20,11 @@ per view (`fscal`, `orders`), sampled in `ops/augment.py`.
   (the elementwise chain in bf16, a trick for the TPU VPU's rate) is not
   carried over: the port computes the chain in fp32 on every path.
 
+The crop kernel runs a frame as a cluster of `CROP_STRIPS` blocks, each
+owning a strip of output rows; `crop_plan` sizes the strips, the chunks a
+strip is computed in, and the shared-memory band of canvas rows a chunk
+reads, and refuses a canvas whose band cannot fit.
+
 The kernel takes the resample and blur matrices in compact form, computed
 here from the same dense matrices the plain version multiplies by:
 `resample_taps` (a row of a linear, non-antialiased resample matrix has at
@@ -33,10 +38,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import cuda_build
+from .plain_grad import use_kernel
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -44,8 +51,12 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 # fscal columns
 F_JITTER, F_FB, F_FC, F_FS, F_FH, F_BLUR, F_GRAY, F_FLIP = range(8)
 BLUR_ROWS, BLUR_COLS = 9, 5  # GaussianBlur kernel (5, 9): 9 taps vertically
-MAX_SIZE = 512  # the kernel's shared-memory tile holds rows of up to this
+MAX_SIZE = 512  # the kernels' shared-memory rows hold up to this
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/photometric.cu's crop_strip_kernel: blocks a frame (one cluster), the
+# blur's halo rows each side of a chunk, the most rows its vertical blur
+# buffers, and the dynamic shared memory a block may take on the H100
+CROP_STRIPS, CROP_HALO, CROP_VROWS, CROP_SMEM = 16, BLUR_ROWS // 2, 8, 232448
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +187,71 @@ def blur_taps(mh, mw):
 
 
 # ---------------------------------------------------------------------------
+# the crop kernel's plan
+# ---------------------------------------------------------------------------
+
+class CropPlan(NamedTuple):
+    """Output rows a strip (a block), rows a chunk (one pass over shared
+    memory: a strip of one chunk holds its rows until the blur, which reads
+    the halo from the neighbouring strips; a strip of several chunks
+    recomputes each chunk's halo and sums the contrast mean in a sweep of its
+    own first), the band's capacity in canvas rows and bytes a row, the rows
+    the vertical blur buffers, and the block's shared memory."""
+
+    rows: int
+    chunk: int
+    band_rows: int
+    band_cols: int
+    vrows: int
+    smem: int
+
+
+def pre_rows(S, rows, chunk):
+    """Frame rows a block holds in shared memory: its strip's, or a chunk's
+    and the blur's halo either side (clipped to the frame)."""
+    return rows if chunk == rows else min(S, chunk + 2 * CROP_HALO)
+
+
+def crop_smem(S, pre, band_rows, band_cols, vrows):
+    """Bytes of csrc/photometric.cu's `strip::layout`: `pre` frame rows
+    (fp32, 3 channels), the band (uint8) or the vertical blur's rows (fp32),
+    whichever is larger, the column and row taps (two weights and an index
+    each) and 512 B of sums, bounds and the blur's row table, each part
+    16-byte aligned."""
+    r16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    return (r16(12 * pre * S) + r16(max(3 * band_rows * band_cols, 12 * vrows * S))
+            + r16(12 * S) + r16(12 * pre) + 512)
+
+
+def band_rows_bound(n, H, S):
+    """Canvas rows the taps of `n` consecutive output rows read, at most, for
+    a linear resample of a box inside an H-row canvas to S rows: sample y
+    sits at (y + 0.5) h / S + top - 0.5 with h <= H, its taps at the floor
+    and the next row, so n rows span at most (n - 1) H / S + 4 rows (one
+    more for fp32's rounding of h / S)."""
+    return min(H, (n - 1) * H // S + 5)
+
+
+def crop_plan(S, H, W):
+    """The crop kernel's plan for S x S outputs from an H x W canvas: strips
+    of ceil(S / CROP_STRIPS) rows, each one chunk if its rows and band fit
+    CROP_SMEM, else the largest chunk whose rows, halo and band do. Raises
+    ValueError where not even a one-row chunk fits."""
+    rows = -(-S // CROP_STRIPS)
+    band_cols = -(-W // 16) * 16
+    for chunk in range(rows, 0, -1):
+        pre = pre_rows(S, rows, chunk)
+        band_rows = band_rows_bound(pre, H, S)
+        vrows = min(CROP_VROWS, chunk)
+        smem = crop_smem(S, pre, band_rows, band_cols, vrows)
+        if smem <= CROP_SMEM:
+            return CropPlan(rows, chunk, band_rows, band_cols, vrows, smem)
+    raise ValueError(f"a {H} x {W} canvas does not fit the crop kernel's shared "
+                     f"memory at output size {S}: the band of even a one-row "
+                     f"chunk exceeds {CROP_SMEM} bytes")
+
+
+# ---------------------------------------------------------------------------
 # the kernel's wrappers
 # ---------------------------------------------------------------------------
 
@@ -183,7 +259,7 @@ def blur_taps(mh, mw):
 def _library():
     lib = cuda_build.load("photometric")
     lib.vrl_photometric.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p] * 2
+        ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
     lib.vrl_photometric.restype = ctypes.c_int
     lib.vrl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vrl_cuda_error_string.restype = ctypes.c_char_p
@@ -208,7 +284,8 @@ def _check(videos, fscal, orders, mh, mw, S, out_dtype):
         raise ValueError("videos must be contiguous")
 
 
-def _launch(videos, src_kind, taps, fscal, orders, mh, mw, S, out_dtype):
+def _launch(videos, src_kind, taps, fscal, orders, mh, mw, S, out_dtype,
+            plan=(0,) * 5):
     BV, T = videos.shape[:2]
     H, W = videos.shape[3], videos.shape[4]
     wy, wx = blur_taps(mh, mw)
@@ -225,7 +302,7 @@ def _launch(videos, src_kind, taps, fscal, orders, mh, mw, S, out_dtype):
             videos.data_ptr(), ptr(hi), ptr(hw), ptr(wi), ptr(ww), fs.data_ptr(),
             order.data_ptr(), wy.data_ptr(), wx.data_ptr(), src_kind, BV, T, H,
             W, S, _DTYPE_CODES[out_dtype], out.data_ptr(),
-            torch.cuda.current_stream(videos.device).cuda_stream)
+            torch.cuda.current_stream(videos.device).cuda_stream, *plan[:5])
     if err != 0:
         raise RuntimeError("photometric kernel launch failed: "
                            + lib.vrl_cuda_error_string(err).decode())
@@ -235,26 +312,31 @@ def _launch(videos, src_kind, taps, fscal, orders, mh, mw, S, out_dtype):
 def crop_photometric(videos, rh, rw, fscal, orders, mh, mw,
                      out_dtype=torch.float32):
     """Crop-resample + photometric tail, see `crop_photometric_reference`.
-    CUDA tensors go through the kernel (uint8 frames only), CPU tensors
-    through the plain version. `crop_photometric.launches` counts kernel
-    launches."""
-    if videos.device.type == "cpu":
+    CUDA tensors go through the kernel (uint8 frames only; rh and rw
+    linear resamples of a box inside the canvas, as `ssl_matrices` builds
+    them, else the kernel traps), CPU tensors through the plain version.
+    `crop_photometric.launches` counts kernel launches."""
+    if not use_kernel("crop_photometric", videos):
         return crop_photometric_reference(videos, rh, rw, fscal, orders, mh,
                                           mw, out_dtype)
-    if videos.device.type != "cuda":
-        raise ValueError(f"crop_photometric runs on cuda or cpu, not {videos.device}")
-    BV, _, C, H, W = videos.shape
+    if videos.dim() != 5:
+        raise ValueError(f"the kernel takes (BV, T, 3, H, W) uint8, got "
+                         f"{tuple(videos.shape)}")
+    BV, T, C, H, W = videos.shape
     S = rh.shape[1]
     if videos.dtype != torch.uint8 or C != 3 or H < 2 or W < 2:
         raise ValueError(f"the kernel takes (BV, T, 3, H >= 2, W >= 2) uint8, "
                          f"got {tuple(videos.shape)} {videos.dtype}")
+    if T > 65535:
+        raise ValueError(f"grid too large: {T} frames a view (at most 65535)")
     if (tuple(rh.shape) != (BV, S, H) or tuple(rw.shape) != (BV, W, S)
             or rh.device != videos.device or rw.device != videos.device):
         raise ValueError(f"rh must be {(BV, S, H)} and rw {(BV, W, S)} on "
                          f"{videos.device}, got {tuple(rh.shape)}, {tuple(rw.shape)}")
     _check(videos, fscal, orders, mh, mw, S, out_dtype)
+    plan = crop_plan(S, H, W)
     taps = resample_taps(rh) + resample_taps(rw.transpose(1, 2))
-    out = _launch(videos, 1, taps, fscal, orders, mh, mw, S, out_dtype)
+    out = _launch(videos, 1, taps, fscal, orders, mh, mw, S, out_dtype, plan)
     crop_photometric.launches += 1
     return out
 
