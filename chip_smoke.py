@@ -11,18 +11,21 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: nvcc builds every `video_rep_learning_tpu_torch/csrc/*.cu`, one
    compiler per source, all at once; each kernel's registers, stack and
-   spills as ptxas reports them (those of the tensor-core kernels of #3, #9,
-   13c-13e and 13f and of #12's cluster kernel go into the `kernels` line);
+   spills as ptxas reports them (those of the tensor-core kernels of #1,
+   #3, #9, #10, 13c-13e and 13f and of #12's cluster kernel go into the
+   `kernels` line);
 3. kernel vs plain, and times beside the plain version, the bound and the
    library call where there is one:
    - flash-attention forward and backward in fp32 and bf16 at the CARL
      shapes and the MV-Former encoder's (2, 8, 720, 32), a long key range,
-     padded keys and a fully masked row, the backward also bit for bit
-     against a second launch;
+     padded keys and a fully masked row, both bit for bit against a second
+     launch, timed with their share of the bound and SDPA's time;
    - crop+photometric and photometric at the CARL training shape
      (2 views x 240 frames of 256x256 uint8 -> 224), every flag, blur sigma
      0.1 and 2.0, a padded canvas, fp32 and bf16 output, and bit for bit
-     against a second launch;
+     against a second launch; then one 1080 x 1920 clip through
+     `ssl_batch_augment` under USE_AMP, which the crop kernel's plan
+     refuses: its route counter must say split;
    - the ViT kernels (LayerNorm, LN + matmul + bias + activation with each
      activation and with the residual epilogue, packed attention in both
      softmax forms, the attention half-block, matmul + GELU, the LN-MLP
@@ -55,8 +58,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    a block and chunk, the embeddings checked likewise); then 16 frames of
    one video in fp32, card vs CPU;
 8. the fused SCL kernels (#10, four passes) against their plain versions at
-   N = 480, 8640 and 308 frames, single_noself and batch_noself; times,
-   bounds and peak memory beside the plain loss; the auto gate at N = 8640;
+   N = 480, 8640 and 308 frames, single_noself and batch_noself, over the
+   tiles `scl_tiles` flags (held against `work_pairs`), bit for bit on a
+   second launch and when walking every tile; times and bounds of each
+   pass, loss + gradient and peak memory beside the plain loss; the auto
+   gate at N = 8640;
 9. MV-Former training: `python -m video_rep_learning_tpu_torch.train`'s
    function on `configs_mvf/pouring_mvf.yml` at full width under
    VRL_FUSED_SCL=1 (warm-started from a seeded checkpoint), one epoch, then
@@ -277,13 +283,17 @@ def phase_build():
 
 
 # the `kernels` line's entries that carry their kernel's ptxas report (the
-# tensor-core kernels of #9, 13c-13e, 13f, #3, and #12's cluster kernel):
-# entry: (source under csrc/, kernel)
+# tensor-core kernels of #9, 13c-13e, 13f, #1, #3 and #10, and #12's cluster
+# kernel): entry: (source under csrc/, kernel)
 PTXAS_KERNELS = {"ln_mlp_block": ("mlp_block", "mlp_wgmma_kernel"),
                  "packed_attn_variant": ("packed_attn_variants", "attn_variant_wgmma_kernel"),
                  "int8_gemm": ("int8_gemm", "gemm_wgmma_kernel"),
+                 "flash_attn_fwd": ("flash_attn_fwd", "flash_fwd_mma_kernel"),
                  "flash_attn_bwd": ("flash_attn_bwd", "flash_bwd_mma_kernel"),
-                 "crop_photometric": ("photometric", "crop_strip_kernel")}
+                 "crop_photometric": ("photometric", "crop_strip_kernel"),
+                 # one kernel, a template instance a pass (scl_pass_kernel<0..3>)
+                 **{name: ("scl", "scl_pass_kernel") for name in
+                    ("scl_rowsum", "scl_loss_rows", "scl_srow", "scl_grad")}}
 # the mangled template arguments these kernels take, and how they print: an
 # integer literal (Li32E: 32), fp32, bf16
 _TEMPLATE_ARG = r"L[a-z]\d+E|f|13__nv_bfloat16"
@@ -326,8 +336,9 @@ def make_synthetic_set():
 
 
 def phase_kernel_vs_plain(main_lens):
-    """Every case goes through the wrapper on CUDA tensors and through
-    `attention_reference` in fp32 on the same (bf16-rounded) values."""
+    """Every case goes through the wrapper on CUDA tensors, twice (the
+    second launch bit for bit), and through `attention_reference` in fp32
+    on the same (bf16-rounded) values."""
     from video_rep_learning_tpu_torch.ops.attention import (
         attention_reference, flash_attention_fwd)
 
@@ -350,17 +361,20 @@ def phase_kernel_vs_plain(main_lens):
                     mask[1] = 0
                 mask = mask.cuda()
             out, lse = flash_attention_fwd(q, k, v, mask, d ** -0.5)
+            again = flash_attention_fwd(q, k, v, mask, d ** -0.5)
             torch.cuda.synchronize()
             r_out, r_lse = attention_reference(q.float(), k.float(), v.float(),
                                                mask, d ** -0.5)
             e_out = (out.float() - r_out).abs().max().item()
             e_lse = (lse - r_lse).abs().max().item()
+            same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
             ok = (e_out <= TOL[(dtype, "out")] and e_lse <= TOL[(dtype, "lse")]
-                  and bool(torch.isfinite(out.float()).all()))
+                  and bool(torch.isfinite(out.float()).all()) and same)
             log(f"kernel vs plain {str(dtype)[6:]:8s} {shape} "
                 f"{'masked' if masked else 'no mask'}: out err {e_out:.3e} "
                 f"(tol {TOL[(dtype, 'out')]:.1e}), lse err {e_lse:.3e} "
-                f"(tol {TOL[(dtype, 'lse')]:.1e}) {'ok' if ok else 'FAIL'}")
+                f"(tol {TOL[(dtype, 'lse')]:.1e}), a second launch "
+                f"{'bit-identical' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash_attn_fwd disagrees at {shape} {dtype}")
             if dtype == torch.float32 and not masked:
@@ -437,7 +451,8 @@ def phase_attention_backward():
 def time_attention(shape, g):
     """#1 and #3 at `shape` fp32, the last eighth of the keys masked: kernel,
     plain version, bound and SDPA given the same key mask as a boolean
-    attn_mask (for #3 its backward alone, the forward untimed)."""
+    attn_mask (for #3 its backward alone, the forward untimed); #1 also
+    without a mask, beside SDPA without one."""
     import torch.nn.functional as F
 
     from video_rep_learning_tpu_torch.ops.attention import (
@@ -464,6 +479,20 @@ def time_attention(shape, g):
     entries["flash_attn_fwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=lib_ms,
                                      host_ms=host_ms)
+    # #1 again without a mask, beside SDPA without one
+    ms, plain_ms, lib_ms, host_ms = timed(
+        lambda: flash_attention_fwd(q, k, v, None, scale),
+        lambda: attention_reference(q, k, v, None, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    b_ms, b_by = bound(*attention_fwd(B, H, S, d))
+    entries["flash_attn_fwd"]["no_mask"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        host_ms=host_ms)
+    log(f"time {shape} fp32 no mask: flash_attn_fwd kernel {ms:.4f} ms (host "
+        f"{host_ms:.4f} ms a call), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; the kernel at {b_ms / ms * 100:.1f}% of it), library "
+        f"(scaled_dot_product_attention, no mask) {lib_ms:.4f} ms, kernel / library "
+        f"{ms / lib_ms:.2f}")
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask, scale=scale)
 
@@ -482,7 +511,8 @@ def time_attention(shape, g):
         log(f"time {shape} fp32 masked: {name} kernel {e['ms']:.4f} ms "
             f"(host {e['host_ms']:.4f} ms a call), "
             f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']}), library (scaled_dot_product_attention, the same "
+            f"({e['bound_by']}; the kernel at {e['bound_ms'] / e['ms'] * 100:.1f}% of "
+            f"it), library (scaled_dot_product_attention, the same "
             f"key mask{', its backward alone' if name.endswith('bwd') else ''}) "
             f"{e['library_ms']:.4f} ms, kernel / library "
             f"{e['ms'] / e['library_ms']:.2f}")
@@ -501,7 +531,8 @@ def phase_augment():
     """crop_photometric and photometric against their plain versions: every
     flag combination (16 views, one per combination) with blur sigma 0.1 and
     2.0 and the four contrast positions, on a padded canvas; then the
-    training shape with sampled values, checked and timed."""
+    training shape with sampled values, checked and timed; then a 1080 x
+    1920 clip through `ssl_batch_augment`'s split route."""
     from video_rep_learning_tpu_torch.ops.bounds import bound, photometric_flops
     from video_rep_learning_tpu_torch.ops.photometric import (
         crop_photometric, crop_photometric_reference, photometric,
@@ -583,7 +614,55 @@ def phase_augment():
         log(f"time {name} ({BV}, {T}) -> {S} {str(dtype)[6:]} out: kernel "
             f"{ms:.4f} ms (host {host_ms:.4f} ms a call), plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), library none")
+    entries["photometric"]["at_1080p_split_route"] = augment_1080p(g, S)
     return entries
+
+
+def augment_1080p(g, S, T=240):
+    """One 1080 x 1920 clip (2 views x T frames) through `ssl_batch_augment`
+    under USE_AMP, as the trainer calls it: the crop kernel's plan refuses
+    the canvas, so the route counter must say "split" (the resample in
+    chunks of frames, then #11); the frames against the plain pipeline on
+    the same sampled values at AUG_TOL, its peak memory and time."""
+    from video_rep_learning_tpu_torch.ops import augment as aug
+    from video_rep_learning_tpu_torch.ops.photometric import (
+        crop_photometric, crop_photometric_reference, photometric)
+
+    H, W, B, V = 1080, 1920, 1, 2
+    p = aug.AugmentParams(image_size=S, use_amp=True)
+    sampled = aug.sample_ssl_batch(g, B, V, H, W, None, p)
+    sampled["fscal"][:, 0] = 1  # jitter on: the contrast mean runs
+    videos = torch.randint(0, 256, (B, V, T, H, W, 3), generator=g,
+                           dtype=torch.uint8).cuda()
+    counts = lambda: (aug.ssl_batch_augment.crop_route,  # noqa: E731
+                      aug.ssl_batch_augment.split_route, crop_photometric.launches,
+                      photometric.launches)
+    with env_vars(VRL_FUSED_CROP="auto"):
+        before = counts()
+        peak = _peak_mib(lambda: aug.ssl_batch_augment(videos, sampled, p))
+        taken = tuple(a - b for a, b in zip(counts(), before))
+        out = aug.ssl_batch_augment(videos, sampled, p)
+        ms, host_ms = cuda_ms(lambda: aug.ssl_batch_augment(videos, sampled, p), reps=3,
+                              warmup=1)
+    m = {k: t.cuda() for k, t in sampled.items()}
+    planar = videos.reshape(B * V, T, H, W, 3).permute(0, 1, 4, 2, 3).contiguous()
+    want = crop_photometric_reference(planar, m["rh"], m["rw"], m["fscal"], m["orders"],
+                                      m["mh"], m["mw"], torch.bfloat16)
+    err = (out.float() - want.view(B, V, T, 3, S, S).permute(0, 1, 2, 4, 5, 3).float()
+           ).abs().max().item()
+    whole = B * V * T * 3 * H * W * 4 / 2 ** 20
+    ok = (taken == (0, 1, 0, 1) and err <= AUG_TOL[torch.bfloat16]
+          and out.dtype == torch.bfloat16 and bool(torch.isfinite(out.float()).all()))
+    log(f"ssl_batch_augment under USE_AMP, {B * V} x {T} frames of {H} x {W} -> {S}: "
+        f"routes crop/split/#12/#11 {taken} (split expected), err {err:.3e} against the "
+        f"plain pipeline (tol {AUG_TOL[torch.bfloat16]:.1e}), peak {peak:.1f} MiB above "
+        f"the canvas (the fp32 canvas in one piece {whole:.1f} MiB), {ms:.3f} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the split route of a 1080 x 1920 canvas failed")
+    del videos, planar, want, out
+    torch.cuda.empty_cache()
+    return dict(ms=ms, host_ms=host_ms, max_abs_err=err, peak_mib=peak)
 
 
 def phase_vit_kernels():
@@ -1505,7 +1584,7 @@ def mvf_fused_mlp_sweep(cfg, model, loader, default, card):
 OWN_KERNELS = {"ln_gemm_wgmma_kernel": "ln_gemm (#6, #5's qkv and proj)",
                "packed_attn_wgmma_kernel": "packed_attn (#4)",
                "layernorm_kernel": "layernorm (#8)",
-               "flash_fwd_kernel": "flash_attn_fwd (encoder)"}
+               "flash_fwd_mma_kernel": "flash_attn_fwd (encoder)"}
 
 
 def phase_mvf_profile(cfg, model, item):
@@ -1559,11 +1638,14 @@ SCL_WORK = dict(zip(SCL_PASSES, ("rowsum", "loss", "srow", "grad")))  # bounds.s
 
 def phase_scl_kernels():
     """The fused SCL kernels (#10) against their plain versions at every
-    SCL_SHAPES size and negative type: each pass's rows, then the loss and
-    the gradient through `scl_loss_fused` against `scl_sequence_loss`; each
-    pass timed beside its plain version and its bound at N = 480 (the
-    pouring_mvf step) and 8640 (the auto gate's reach); peak memory of the
-    plain and fused loss + gradient at 8640; the auto gate at 8640."""
+    SCL_SHAPES size and negative type: the tiles they walk (`scl_tiles`)
+    against `work_pairs`' per tile, each pass's rows (bit for bit on a
+    second launch and when walking every tile), then the loss and the
+    gradient through `scl_loss_fused` against `scl_sequence_loss`; each pass
+    timed beside its plain version and its bound at N = 480 (the pouring_mvf
+    step; both negative types) and 8640 (the auto gate's reach); loss +
+    gradient and the peak memory of the plain and fused ones at 8640; the
+    auto gate at 8640."""
     from video_rep_learning_tpu_torch.algos.scl import (scl_loss_dispatch,
                                                         scl_sequence_loss)
     from video_rep_learning_tpu_torch.ops import bounds, scl
@@ -1578,19 +1660,28 @@ def phase_scl_kernels():
                      single="single" in neg, noself="noself" in neg)
             e, meta = scl.pad_inputs(e4.reshape(N, C), scl.build_meta(lens, steps, masks),
                                      scl.block_layout(N))
-            rows = scl.scl_rowsum(e, meta, **p)
-            s = scl.scl_srow(e, meta, rows, **p)
+            # the tiles the passes walk, from the metadata, against the same
+            # flags taken from `work_pairs` tile by tile
+            flags = dict(single=p["single"], noself=p["noself"])
+            tiles = scl.scl_tiles(meta, B, 2, **flags)
+            if not torch.equal(tiles, scl.tiles_reference(meta, **flags)):
+                raise AssertionError(f"scl_tiles disagrees with work_pairs at N={N} {neg}")
+            rows = scl.scl_rowsum(e, meta, tiles, **p)
+            s = scl.scl_srow(e, meta, rows, tiles, **p)
             # each pass and its plain version on the kernels' own rows and S
-            calls = {"scl_rowsum": (lambda: scl.scl_rowsum(e, meta, **p),
+            calls = {"scl_rowsum": (lambda t=tiles: scl.scl_rowsum(e, meta, t, **p),
                                     lambda: scl.rowsum_reference(e, meta, **p)),
-                     "scl_loss_rows": (lambda: scl.scl_loss_rows(e, meta, rows, **p),
+                     "scl_loss_rows": (lambda t=tiles: scl.scl_loss_rows(e, meta, rows, t, **p),
                                        lambda: scl.loss_rows_reference(e, meta, rows, **p)),
-                     "scl_srow": (lambda: scl.scl_srow(e, meta, rows, **p),
+                     "scl_srow": (lambda t=tiles: scl.scl_srow(e, meta, rows, t, **p),
                                   lambda: scl.srow_reference(e, meta, rows, **p)),
-                     "scl_grad": (lambda: scl.scl_grad(e, meta, rows, s, **p),
+                     "scl_grad": (lambda t=tiles: scl.scl_grad(e, meta, rows, s, t, **p),
                                   lambda: scl.grad_reference(e, meta, rows, s, **p))}
             got = {"scl_rowsum": rows, "scl_loss_rows": calls["scl_loss_rows"][0](),
                    "scl_srow": s, "scl_grad": calls["scl_grad"][0]()}
+            # a second launch, and a walk over every tile, give the same bits
+            same = all(torch.equal(got[k], calls[k][0]()) for k in SCL_PASSES)
+            every = all(torch.equal(got[k], calls[k][0](None)) for k in SCL_PASSES)
             torch.cuda.synchronize()
             plain = {k: ref() for k, (_, ref) in calls.items()}
             # negsum and possum each against its own largest value
@@ -1609,36 +1700,44 @@ def phase_scl_kernels():
                       for k in SCL_PASSES)
                   and l_err <= SCL_TOL["loss"] and g_err <= SCL_TOL["grad"]
                   and all(bool(torch.isfinite(t).all()) for t in got.values())
-                  and not rows[N:].any() and not got["scl_grad"][N:].any())
+                  and not rows[N:].any() and not got["scl_grad"][N:].any()
+                  and same and every)
+            kept = [(tiles & bit).bool().float().mean().item() * 100 for bit in (1, 2)]
             log(f"kernel vs plain scl N={N} ({B}x2x{T}) {neg}: rows/loss/S/grad "
                 f"passes err " + "/".join(f"{errs[k]:.2e}" for k in SCL_PASSES)
                 + f" of the largest value (tol {SCL_TOL['rows']:.0e}, grad "
                 f"{SCL_TOL['grad']:.0e}); loss {fused.item():.6f} vs {ref.item():.6f} "
                 f"(rel {l_err:.2e}, tol {SCL_TOL['loss']:.0e}); dL/de err {g_err:.2e} "
-                f"(tol {SCL_TOL['grad']:.0e}) {'ok' if ok else 'FAIL'}")
+                f"(tol {SCL_TOL['grad']:.0e}); a second launch "
+                f"{'bit-identical' if same else 'DIFFERS'}, every tile walked "
+                f"{'bit-identical' if every else 'DIFFERS'}; tiles walked {kept[0]:.1f}% "
+                f"(passes 1, 4), {kept[1]:.1f}% (2, 3) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"the fused SCL kernels disagree at N={N} {neg}")
-            if N not in (480, 8640) or neg != "single_noself":
+            if N not in (480, 8640) or (N == 8640 and neg != "single_noself"):
                 continue
             # times beside the plain passes and the bound of the pairs these
             # inputs need: every pair with a negative weight or a positive
             # label for passes 1 and 4, the positives alone for 2 and 3
-            pairs, positives = (int(m.sum()) for m in scl.work_pairs(
-                meta, single=p["single"], noself=p["noself"]))
+            pairs, positives = (int(m.sum()) for m in scl.work_pairs(meta, **flags))
             work = bounds.scl_fused(N, C, pairs=pairs, positives=positives)
             for name in SCL_PASSES:
                 ms, plain_ms, _, host_ms = timed(*calls[name])
                 b_ms, b_by = bounds.bound(*work[SCL_WORK[name]])
-                log(f"time {name} N={N} single_noself fp32: kernel {ms:.4f} ms "
+                log(f"time {name} N={N} {neg} fp32: kernel {ms:.4f} ms "
                     f"(host {host_ms:.4f} ms a call), "
                     f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
                     f"{positives if SCL_WORK[name] in ('loss', 'srow') else pairs} of "
-                    f"{N * N} pairs), library none")
-                if N == 480:  # the shape the MV-Former training path gives it
-                    entries[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                         bound_by=b_by, library_ms=None,
-                                         host_ms=host_ms,
+                    f"{N * N} pairs; the kernel at {b_ms / ms * 100:.1f}% of it), "
+                    f"library none")
+                timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                if N == 480 and neg == "single_noself":  # the MV-Former training step's
+                    entries[name] = dict(timing, library_ms=None, host_ms=host_ms,
                                          max_abs_err=abs_errs[name])
+                else:
+                    entries.setdefault(name, {})[f"at_N{N}_{neg}"] = timing
+            if neg != "single_noself":
+                continue
 
             def fused_step():
                 x = e4.clone().requires_grad_()
@@ -1654,12 +1753,15 @@ def phase_scl_kernels():
             log(f"time fused SCL loss + gradient N={N}: kernels {f_ms:.4f} ms, plain "
                 f"scl_sequence_loss + autograd {p_ms:.4f} ms, bound {sum(fb):.4f} ms "
                 f"(forward {fb[0]:.4f}, backward {fb[1]:.4f}; operations)")
+            entries["scl_grad"][f"at_N{N}_loss_grad"] = dict(ms=f_ms, plain_ms=p_ms,
+                                                             bound_ms=sum(fb))
             if N == 8640:
                 mem = {k: _peak_mib(f) for k, f in (("plain", plain_step),
                                                     ("fused", fused_step))}
                 log(f"peak device memory of loss + gradient at N={N}: plain "
                     f"{mem['plain']:.1f} MiB, fused {mem['fused']:.1f} MiB "
                     f"(torch.cuda.max_memory_allocated above the inputs)")
+                entries["scl_grad"][f"at_N{N}_loss_grad"]["peak_mib"] = mem["fused"]
                 # the auto gate (VRL_FUSED_SCL unset) takes the kernels here
                 saved = os.environ.pop("VRL_FUSED_SCL", None)
                 try:
@@ -1676,7 +1778,7 @@ def phase_scl_kernels():
                 log(f"auto gate (VRL_FUSED_SCL unset) at N={N}: launches {json.dumps(gate)}")
                 if any(v != 1 for v in gate.values()):
                     raise AssertionError(f"the auto gate did not take the kernels at N={N}")
-            del e, meta, rows, s, plain, got, calls
+            del e, meta, rows, s, plain, got, calls, tiles
             torch.cuda.empty_cache()
     return entries
 
@@ -1777,8 +1879,10 @@ def _mvf_train_path(data_root, card):
         f"augment + ViT + head + fused SCL + backward + Adam; VRL_FUSED_SCL "
         f"{os.environ.get('VRL_FUSED_SCL', 'auto')}): {step_ms:.1f} ms/step, "
         f"{clips / step_ms * 1e3:.3f} clips/s on {card}; losses {losses}")
-    own = dict(OWN_KERNELS, scl_rows_kernel="fused SCL passes 1-3",
-               scl_grad_kernel="fused SCL pass 4",
+    own = dict(OWN_KERNELS, **{f"scl_pass_kernel<{i}>": "fused SCL passes 1-3"
+                               for i in range(3)},
+               **{"scl_pass_kernel<3>": "fused SCL pass 4",
+                  "scl_sum_splits_kernel": "fused SCL split sums"},
                flash_bwd_mma_kernel="flash_attn_bwd",
                crop_strip_kernel="crop_photometric")
     profile_train_step(trainer, batch, "MV-Former", "mvf_train_step_trace.json", own)
@@ -2247,7 +2351,7 @@ def main():
             "host_ms": e["host_ms"],
             **{k: v for k, v in e.items() if k.endswith("_480")
                or k.startswith("at_") or k in ("row", "rows_ms", "rows_err", "rows_ms_b160", "slopes_ms",
-                        "parts", "ptxas", "mvf_eval_fused_mlp")}})
+                        "parts", "ptxas", "mvf_eval_fused_mlp", "no_mask")}})
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,35 +38,52 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "no_mask"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("shape", [(1, 8, 37, 32), (1, 8, 1000, 32),
-                                   (2, 8, 240, 32), (1, 8, 6000, 32),
+# chip_smoke.py's cases (`phase_kernel_vs_plain`): key lengths from under
+# one 64-key step to 6000, the CARL training and MV-Former encoder shapes,
+# both head widths; each block layout (16, 32 and 64 rows) is reached
+@pytest.mark.parametrize("shape", [(1, 8, 37, 32), (1, 8, 128, 32), (1, 8, 240, 32),
+                                   (1, 8, 600, 32), (1, 8, 1000, 32),
+                                   (2, 8, 240, 32), (2, 8, 720, 32), (1, 8, 6000, 32),
                                    (2, 12, 785, 64)], ids=str)
-def test_flash_attn_fwd_matches_plain(cuda, shape, dtype):
+def test_flash_attn_fwd_matches_plain(cuda, shape, dtype, masked):
+    """The forward kernel against `attention_reference` in fp32 on the same
+    values, masked (padded tail keys, and with B > 1 a batch row that
+    attends to nothing: the mean of V) or not; a second launch bit for
+    bit."""
     g = torch.Generator().manual_seed(0)
     B, _, S, d = shape
     q, k, v = (torch.randn(shape, generator=g).to(cuda, dtype) for _ in range(3))
-    mask = (torch.rand(B, S, generator=g) > 0.1).float()
-    mask[:, S - S // 8:] = 0
-    if B > 1:
-        mask[1] = 0  # a batch row that attends to nothing: mean of V
-    mask = mask.to(cuda)
+    mask = None
+    if masked:
+        mask = (torch.rand(B, S, generator=g) > 0.1).float()
+        mask[:, S - S // 8:] = 0
+        if B > 1:
+            mask[1] = 0
+        mask = mask.to(cuda)
     before = attention.flash_attention_fwd.launches
     out, lse = attention.flash_attention_fwd(q, k, v, mask, d ** -0.5)
+    again = attention.flash_attention_fwd(q, k, v, mask, d ** -0.5)
     torch.cuda.synchronize()
-    assert attention.flash_attention_fwd.launches == before + 1
+    assert attention.flash_attention_fwd.launches == before + 2
     ref, ref_lse = attention.attention_reference(q.float(), k.float(),
                                                  v.float(), mask, d ** -0.5)
     out_tol, lse_tol = TOL[dtype]
     assert out.dtype == dtype and lse.dtype == torch.float32
     assert (out.float() - ref).abs().max().item() <= out_tol
     assert (lse - ref_lse).abs().max().item() <= lse_tol
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
 def test_flash_attn_rejects_bad_head_width(cuda):
     x = torch.randn(1, 2, 8, 16, device=cuda)
     with pytest.raises(ValueError, match="head width"):
         attention.flash_attention(x, x, x)
+    # the forward stages its tiles with 16-byte copies
+    y = torch.randn(2 * 8 * 32 + 2, device=cuda)[2:].view(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="16-byte aligned for the forward"):
+        attention.flash_attention_fwd(y, y, y)
 
 
 # gradients: fp32 sums in another order over up to 6000 keys; bf16: the
@@ -247,6 +264,48 @@ def test_crop_photometric_is_deterministic(cuda, case):
     second = photometric.crop_photometric(*args, out_dtype=torch.float32)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def test_split_route_takes_a_1080p_canvas(cuda, monkeypatch, capsys):
+    """Under USE_AMP a 1080 x 1920 canvas, which the crop kernel's plan
+    refuses, goes through `ssl_batch_augment`'s split route (the resample in
+    chunks of frames, then the photometric-only kernel), against the plain
+    pipeline on the same sampled values; its peak memory stays under half
+    the fp32 canvas the resample would hold in one piece."""
+    from video_rep_learning_tpu_torch.ops import augment as aug
+
+    monkeypatch.delenv("VRL_FUSED_CROP", raising=False)
+    B, V, T, H, W, S = 1, 2, 24, 1080, 1920, 224
+    p = aug.AugmentParams(image_size=S, use_amp=True)
+    gen = torch.Generator().manual_seed(3)
+    sampled = aug.sample_ssl_batch(gen, B, V, H, W, None, p)
+    sampled["fscal"][:, 0] = 1  # jitter on: the contrast mean runs
+    videos = torch.randint(0, 256, (B, V, T, H, W, 3), generator=gen,
+                           dtype=torch.uint8).to(cuda)
+    counts = lambda: (aug.ssl_batch_augment.crop_route,  # noqa: E731
+                      aug.ssl_batch_augment.split_route,
+                      photometric.crop_photometric.launches, photometric.photometric.launches)
+    before = counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = aug.ssl_batch_augment(videos, sampled, p)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 1, 0, 1)
+    m = {k: t.to(cuda) for k, t in sampled.items()}
+    planar = videos.reshape(B * V, T, H, W, 3).permute(0, 1, 4, 2, 3).contiguous()
+    want = photometric.crop_photometric_reference(
+        planar, m["rh"], m["rw"], m["fscal"], m["orders"], m["mh"], m["mw"],
+        torch.bfloat16).view(B, V, T, 3, S, S).permute(0, 1, 2, 4, 5, 3)
+    assert out.shape == want.shape and out.dtype == torch.bfloat16
+    assert (out.float() - want.float()).abs().max().item() <= AUG_TOL[torch.bfloat16]
+    whole = B * V * T * 3 * H * W * 4
+    with capsys.disabled():
+        print(f"\nsplit route, {B * V} x {T} frames of {H} x {W} -> {S}: peak "
+              f"{peak / 2 ** 20:.1f} MiB above the canvas (the fp32 canvas in one "
+              f"piece: {whole / 2 ** 20:.1f} MiB)")
+    assert peak < whole / 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -610,7 +669,7 @@ def test_mlp_gates_reach_their_kernels(cuda, monkeypatch, gate):
 
 
 # the fused SCL passes, fp32 on both sides with TF32 off: the same per-pair
-# math summed in another order over up to 480 x 512 pairs. Row sums of
+# math summed in another order over up to 8640 x 8640 pairs. Row sums of
 # exp(l) (l <= 1 / tau = 10) and the loss rows: 1e-5 relative (+1e-5 for
 # rows near 0); the loss 1e-5 relative; the gradient 1e-4 of its largest
 # value, as the JAX package holds its fused backward against XLA
@@ -618,29 +677,40 @@ SCL_ROW_RTOL, SCL_GRAD_TOL = 1e-5, 1e-4
 
 
 @pytest.mark.parametrize("neg", ["single_noself", "batch_noself"])
-@pytest.mark.parametrize("B, T", [(1, 240), (2, 77)], ids=["N480", "N308"])
-def test_scl_passes_match_plain(cuda, B, T, neg):
+@pytest.mark.parametrize("B, T, C", [(1, 240, 128), (18, 240, 128), (2, 77, 128), (2, 77, 32)],
+                         ids=["N480", "N8640", "N308", "N308_C32"])
+def test_scl_passes_match_plain(cuda, B, T, C, neg):
     """Each pass on padded inputs (480 and 308 frames, neither a multiple of
-    the 64-row tile), then the loss and gradient through `scl_loss_fused`
-    against the plain passes' and `scl_sequence_loss`'s."""
+    the 64-row tile, and the auto gate's 8640; the embedding width 128 and
+    a narrower 32) over the tiles `scl_tiles` flags, against the plain
+    passes; a second launch bit for bit, and the same bits again walking
+    every tile (an empty tile adds exact zeros); then the loss and gradient
+    through `scl_loss_fused` against `scl_sequence_loss`'s."""
     from video_rep_learning_tpu_torch.algos.scl import scl_sequence_loss
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    e4, lens, steps, masks = scl.sample_inputs(B, T, seed=B, device=cuda)
-    N, C = B * 2 * T, e4.shape[-1]
-    params = dict(temperature=0.1, label_varience=10.0,
-                  single="single" in neg, noself="noself" in neg)
+    e4, lens, steps, masks = scl.sample_inputs(B, T, seed=B, C=C, device=cuda)
+    N = B * 2 * T
+    flags = dict(single="single" in neg, noself="noself" in neg)
+    params = dict(temperature=0.1, label_varience=10.0, **flags)
     e, meta = scl.pad_inputs(e4.reshape(N, C), scl.build_meta(lens, steps, masks),
                              scl.block_layout(N))
-    before = [f.launches for f in (scl.scl_rowsum, scl.scl_loss_rows, scl.scl_srow,
-                                   scl.scl_grad)]
-    rows = scl.scl_rowsum(e, meta, **params)
-    loss_rows = scl.scl_loss_rows(e, meta, rows, **params)
-    s = scl.scl_srow(e, meta, rows, **params)
-    de = scl.scl_grad(e, meta, rows, s, **params)
+    tiles = scl.scl_tiles(meta, B, 2, **flags)
+    assert torch.equal(tiles, scl.tiles_reference(meta, **flags))
+
+    def passes(walk):
+        rows = scl.scl_rowsum(e, meta, walk, **params)
+        loss_rows = scl.scl_loss_rows(e, meta, rows, walk, **params)
+        s = scl.scl_srow(e, meta, rows, walk, **params)
+        return rows, loss_rows, s, scl.scl_grad(e, meta, rows, s, walk, **params)
+
+    counters = (scl.scl_rowsum, scl.scl_loss_rows, scl.scl_srow, scl.scl_grad)
+    before = [f.launches for f in counters]
+    rows, loss_rows, s, de = got = passes(tiles)
     torch.cuda.synchronize()
-    assert [f.launches for f in (scl.scl_rowsum, scl.scl_loss_rows, scl.scl_srow,
-                                 scl.scl_grad)] == [b + 1 for b in before]
+    assert [f.launches for f in counters] == [b + 1 for b in before]
+    assert all(torch.equal(a, b) for a, b in zip(got, passes(tiles)))
+    assert all(torch.equal(a, b) for a, b in zip(got, passes(None)))
     want_rows = scl.rowsum_reference(e, meta, **params)
     torch.testing.assert_close(rows, want_rows, rtol=SCL_ROW_RTOL, atol=1e-6)
     torch.testing.assert_close(loss_rows, scl.loss_rows_reference(e, meta, rows, **params),
@@ -650,6 +720,7 @@ def test_scl_passes_match_plain(cuda, B, T, neg):
     want_de = scl.grad_reference(e, meta, rows, s, **params)
     assert (de - want_de).abs().max().item() <= SCL_GRAD_TOL * want_de.abs().max().item()
     assert not rows[N:].any() and not de[N:].any()
+    del want_rows, want_de
 
     got_e, want_e = (e4.clone().requires_grad_() for _ in range(2))
     got = scl.scl_loss_fused(got_e, lens, steps, masks, 0.1, 10.0, neg)
@@ -675,6 +746,9 @@ def test_scl_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="rows must be"):
         scl.scl_srow(torch.zeros(64, 128, device=cuda), meta,
                      torch.zeros(64, 3, device=cuda), **kw)
+    with pytest.raises(ValueError, match="tiles must be a contiguous uint8"):
+        scl.scl_rowsum(torch.zeros(64, 128, device=cuda), meta,
+                       torch.ones(2, 2, dtype=torch.uint8, device=cuda), **kw)
 
 
 # the micro-benchmark kernels: one small and one ragged shape each. Both

@@ -263,3 +263,43 @@ def test_work_pairs_hold_every_nonzero_term(neg):
     assert not pos[~positives].any()
     assert (positives <= pairs).all() and 0 < positives.sum() < pairs.sum()
     assert positives.sum() < cross.sum()  # masked frames carry no label
+
+
+# (B, T, masked frames): clips that share a tile with their neighbours, a
+# K400-like batch of many short clips, and clips with no masked frame
+TILE_CASES = {"3 clips, masked": (3, 40, True), "18 clips, masked": (18, 24, True),
+              "2 clips, none masked": (2, 70, False)}
+
+
+@pytest.mark.parametrize("neg", ["single_noself", "batch_noself", "single_self", "batch_self"])
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tiles_hold_every_work_pair(case, neg):
+    """`scl_tiles`, the flags the kernels skip tiles by, from per-tile counts:
+    every pair `work_pairs` counts lies in a tile flagged for passes 1 and 4,
+    every positive in one flagged for passes 2 and 3, and a tile is dropped
+    only where it holds no such pair (the flags equal `tiles_reference`'s,
+    taken from `work_pairs` tile by tile). Under single_noself most of a
+    multi-clip batch is skipped; under batch_noself only the tiles inside
+    one view of one clip and the padding are."""
+    B, T, masked = TILE_CASES[case]
+    e4, lens, steps, masks = port_fused.sample_inputs(B, T, seed=B)
+    if not masked:
+        masks = torch.ones_like(masks)
+    N, TILE = B * 2 * T, port_fused.TILE
+    meta = port_fused.pad_inputs(e4.reshape(N, -1), port_fused.build_meta(lens, steps, masks),
+                                 port_fused.block_layout(N))[1]
+    tiles = port_fused.scl_tiles(meta, B, 2, **_flags(neg))
+    nT = meta.shape[1] // TILE
+    assert tiles.shape == (nT, nT) and tiles.dtype == torch.uint8
+    pairs, positives = port_fused.work_pairs(meta, **_flags(neg))
+    for bit, need in ((1, pairs), (2, positives)):
+        flagged = (tiles & bit).bool().repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
+        assert not need[~flagged].any()  # every pair in a flagged tile
+        holds = need.view(nT, TILE, nT, TILE).any(3).any(1)
+        assert torch.equal((tiles & bit).bool(), holds)  # only empty tiles dropped
+    assert torch.equal(tiles, port_fused.tiles_reference(meta, **_flags(neg)))
+    kept = (tiles & 1).float().mean().item()
+    if neg == "single_noself" and B == 18:
+        assert kept < 0.5
+    if neg == "batch_noself":
+        assert kept > 0.75

@@ -32,8 +32,8 @@
 // - delta is folded in: the dk/dv role stages the O tile beside dO and each
 //   lane sums its row's dO * O; the dq role does the same once for its own
 //   rows. No scratch tensor, no pre-pass.
-// - Every product is on the tensor cores through mma.sync: bf16 as
-//   m16n8k16; fp32 as 3xTF32 m16n8k8 (each operand split into a tf32 hi and
+// - Every product is on the tensor cores through mma.sync (`mma.cuh`): bf16
+//   as m16n8k16; fp32 as 3xTF32 m16n8k8 (each operand split into a tf32 hi and
 //   lo, and hi*lo' + lo*hi' + hi*hi' summed in fp32), which keeps about
 //   fp32's accuracy where one TF32 product would lose ~3 digits. The
 //   accumulators of s^T / p^T (keys as rows) are the A operand of p^T dO and
@@ -52,12 +52,19 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
+using vrl::cp_async16;
+using vrl::cp_async4;
+using vrl::cp_async_commit;
+using vrl::cp_async_wait;
+using vrl::Mma;
+using vrl::stage_rows;
+using vrl::store2;
 using vrl::to_f32;
 
 constexpr int kOwn = 32;          // rows a block owns: keys or q rows
@@ -65,154 +72,6 @@ constexpr int kHalf = 32;         // rows of the walk a warp takes a step
 constexpr int kStep = 2 * kHalf;  // rows of the walk a step stages
 constexpr int kThreads = 128;     // 2 row groups x 2 halves
 constexpr float kNegInf = -0.7f * 3.402823466e38f;  // -0.7 * fp32 max
-
-// --- cp.async -------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// --- the tensor-core products ---------------------------------------------
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// One warp's fragments of a 16 x kK A, a kK x 8 B and the 16 x 8 fp32
-// accumulator (c[0], c[1]: row g, columns 2t, 2t + 1; c[2], c[3]: row g + 8),
-// g = lane / 4, t = lane % 4. A product's k order is free as long as A and B
-// follow the same one: `rows_a` / `rows_b` read k along a shared-memory row
-// in the natural order; `acc_a` takes an accumulator tile as A, and
-// `cols_b` reads B down the rows in that tile's order.
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<float> {  // 3xTF32, m16n8k8
-  static constexpr int kK = 8;
-  struct A { uint32_t hi[4], lo[4]; };
-  struct B { uint32_t hi[2], lo[2]; };
-  // A[m][k] = s[(r0 + m) * ld + k0 + k]
-  static __device__ __forceinline__ A rows_a(const float* s, int ld, int r0, int k0) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const float* p = s + (r0 + g) * ld + k0 + t;
-    A a;
-    split(p[0], a.hi[0], a.lo[0]);
-    split(p[8 * ld], a.hi[1], a.lo[1]);
-    split(p[4], a.hi[2], a.lo[2]);
-    split(p[8 * ld + 4], a.hi[3], a.lo[3]);
-    return a;
-  }
-  // B[k][n] = s[(n0 + n) * ld + k0 + k]
-  static __device__ __forceinline__ B rows_b(const float* s, int ld, int n0, int k0) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const float* p = s + (n0 + g) * ld + k0 + t;
-    B b;
-    split(p[0], b.hi[0], b.lo[0]);
-    split(p[4], b.hi[1], b.lo[1]);
-    return b;
-  }
-  // B[k][n] = s[(k0 + k) * ld + n0 + n], k in `acc_a`'s order: position t
-  // is row 2t, position t + 4 row 2t + 1
-  static __device__ __forceinline__ B cols_b(const float* s, int ld, int k0, int n0) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const float* p = s + (k0 + 2 * t) * ld + n0 + g;
-    B b;
-    split(p[0], b.hi[0], b.lo[0]);
-    split(p[ld], b.hi[1], b.lo[1]);
-    return b;
-  }
-  // A = accumulator tile kk (16 x 8): k position t is its column 2t, t + 4
-  // its column 2t + 1
-  static __device__ __forceinline__ A acc_a(const float (*c)[4], int kk) {
-    A a;
-    split(c[kk][0], a.hi[0], a.lo[0]);
-    split(c[kk][2], a.hi[1], a.lo[1]);
-    split(c[kk][1], a.hi[2], a.lo[2]);
-    split(c[kk][3], a.hi[3], a.lo[3]);
-    return a;
-  }
-  static __device__ __forceinline__ void mma(float c[4], const A& a, const B& b) {
-    mma_tf32(c, a.lo, b.hi);
-    mma_tf32(c, a.hi, b.lo);
-    mma_tf32(c, a.hi, b.hi);
-  }
-};
-
-template <>
-struct Mma<__nv_bfloat16> {  // m16n8k16
-  using bf16 = __nv_bfloat16;
-  static constexpr int kK = 16;
-  struct A { uint32_t r[4]; };
-  struct B { uint32_t r[2]; };
-  static __device__ __forceinline__ uint32_t u32(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ A rows_a(const bf16* s, int ld, int r0, int k0) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const bf16* p = s + (r0 + g) * ld + k0 + 2 * t;
-    return A{{u32(p), u32(p + 8 * ld), u32(p + 8), u32(p + 8 * ld + 8)}};
-  }
-  static __device__ __forceinline__ B rows_b(const bf16* s, int ld, int n0, int k0) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-    return B{{u32(p), u32(p + 8)}};
-  }
-  static __device__ __forceinline__ B cols_b(const bf16* s, int ld, int k0, int n0) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const bf16* p = s + (k0 + 2 * t) * ld + n0 + g;
-    return B{{pack_raw(p[0], p[ld]), pack_raw(p[8 * ld], p[9 * ld])}};
-  }
-  // accumulator tiles 2kk, 2kk + 1 rounded to bf16: the TPU kernel's cast
-  // of p and ds to the input type before their products
-  static __device__ __forceinline__ A acc_a(const float (*c)[4], int kk) {
-    const float* x = c[2 * kk];
-    const float* y = c[2 * kk + 1];
-    return A{{pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]), pack_bf16(y[0], y[1]),
-              pack_bf16(y[2], y[3])}};
-  }
-  static __device__ __forceinline__ void mma(float c[4], const A& a, const B& b) {
-    mma_bf16(c, a.r, b.r);
-  }
-};
 
 // --- shared memory ----------------------------------------------------------
 
@@ -229,19 +88,6 @@ struct Smem {
   static constexpr int kBytes = kKv > kQ ? kKv : kQ;
   static_assert(kTile % 16 == 0, "cp.async needs 16-byte rows");
 };
-
-// Rows [r0, r0 + R) of a (n, D) tensor into padded shared rows, zero past n.
-template <int D, typename T, int R>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, int r0, int n) {
-  constexpr int kLd = Smem<D, T>::kLd;
-  constexpr int kChunk = 16 / sizeof(T);
-  constexpr int kPerRow = D / kChunk;
-  for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kChunk;
-    const bool in = r0 + r < n;
-    cp_async16(dst + r * kLd + c, in ? src + (size_t)(r0 + r) * D + c : src, in);
-  }
-}
 
 // Values [r0, r0 + kStep) of an fp32 vector, zero past n.
 __device__ __forceinline__ void stage_vec(float* dst, const float* src, int r0, int n) {
@@ -270,13 +116,6 @@ __device__ __forceinline__ float row_delta(const T* dO, const T* O, int r) {
 __device__ __forceinline__ float probability(float s, float flag, float lse, float scale) {
   // flag 1: an attended key; 0: masked, scores NEG_INF; -1: past Sk
   return flag > 0.f ? __expf(s * scale - lse) : (flag == 0.f ? __expf(kNegInf - lse) : 0.f);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // After the walk: the half-1 warps hand their accumulators to the half-0
@@ -340,12 +179,12 @@ __device__ __forceinline__ void dkdv_role(unsigned char* smem, const T* q, const
     return reinterpret_cast<float*>(walk + b * L::kKvStep + 3 * kStep * L::kTile);
   };
 
-  stage_rows<D, T, kOwn>(Ks, k, k0, Sk);
-  stage_rows<D, T, kOwn>(Vs, v, k0, Sk);
+  stage_rows<D, kOwn, L::kLd, kThreads>(Ks, k, k0, Sk);
+  stage_rows<D, kOwn, L::kLd, kThreads>(Vs, v, k0, Sk);
   auto stage = [&](int b, int q0) {
-    stage_rows<D, T, kStep>(buf(b, 0), q, q0, Sq);
-    stage_rows<D, T, kStep>(buf(b, 1), dout, q0, Sq);
-    stage_rows<D, T, kStep>(buf(b, 2), out, q0, Sq);
+    stage_rows<D, kStep, L::kLd, kThreads>(buf(b, 0), q, q0, Sq);
+    stage_rows<D, kStep, L::kLd, kThreads>(buf(b, 1), dout, q0, Sq);
+    stage_rows<D, kStep, L::kLd, kThreads>(buf(b, 2), out, q0, Sq);
     stage_vec(lse_buf(b), lse, q0, Sq);
   };
   stage(0, 0);
@@ -461,12 +300,12 @@ __device__ __forceinline__ void dq_role(unsigned char* smem, const T* q, const T
     return reinterpret_cast<float*>(walk + b * L::kQStep + 2 * kStep * L::kTile);
   };
 
-  stage_rows<D, T, kOwn>(Qs, q, q0, Sq);
-  stage_rows<D, T, kOwn>(dOs, dout, q0, Sq);
-  stage_rows<D, T, kOwn>(Os, out, q0, Sq);
+  stage_rows<D, kOwn, L::kLd, kThreads>(Qs, q, q0, Sq);
+  stage_rows<D, kOwn, L::kLd, kThreads>(dOs, dout, q0, Sq);
+  stage_rows<D, kOwn, L::kLd, kThreads>(Os, out, q0, Sq);
   auto stage = [&](int b, int key0) {
-    stage_rows<D, T, kStep>(buf(b, 0), k, key0, Sk);
-    stage_rows<D, T, kStep>(buf(b, 1), v, key0, Sk);
+    stage_rows<D, kStep, L::kLd, kThreads>(buf(b, 0), k, key0, Sk);
+    stage_rows<D, kStep, L::kLd, kThreads>(buf(b, 1), v, key0, Sk);
     if (mask != nullptr) stage_vec(mask_buf(b), mask, key0, Sk);
   };
   stage(0, 0);

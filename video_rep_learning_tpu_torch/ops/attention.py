@@ -111,6 +111,14 @@ def _check_cuda_inputs(q, k, v, kv_mask):
                          f"{kv_mask.device}")
 
 
+def _check_aligned(kernel, **tensors):
+    """The kernels stage their tiles with 16-byte copies (cp.async)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the {kernel} "
+                             f"kernel")
+
+
 @functools.lru_cache(maxsize=None)
 def _library(name):
     lib = cuda_build.load(name)
@@ -126,16 +134,18 @@ def _library(name):
 
 def flash_attention_fwd(q, k, v, kv_mask=None, sm_scale=1.0):
     """(out, lse) of masked attention; see `attention_reference` for the
-    math. CUDA tensors go through the kernel, CPU tensors through the plain
-    version. On CUDA it records no gradient: `flash_attention` is the
-    differentiable entry. `flash_attention_fwd.launches` counts kernel
-    launches."""
+    math. CUDA tensors go through the kernel (16-byte aligned q, k, v; with
+    bf16 inputs it rounds p to bf16 before P V, as the plain version does),
+    CPU tensors through the plain version. On CUDA it records no gradient:
+    `flash_attention` is the differentiable entry.
+    `flash_attention_fwd.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_mask, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     refuse_grad("flash_attention_fwd", q, k, v)
     _check_cuda_inputs(q, k, v, kv_mask)
+    _check_aligned("forward", q=q, k=k, v=v)
     B, H, Sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -177,12 +187,7 @@ def flash_attention_bwd(q, k, v, kv_mask, out, lse, grad_out, sm_scale=1.0):
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous {tuple(shape)} {dtype} on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-    # the kernel stages its tiles with 16-byte copies (cp.async)
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
-                    ("grad_out", grad_out)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for the backward "
-                             f"kernel")
+    _check_aligned("backward", q=q, k=k, v=v, out=out, grad_out=grad_out)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if Sq == 0:
         return dq, dk.zero_(), dv.zero_()

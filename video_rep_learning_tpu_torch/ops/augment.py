@@ -21,11 +21,12 @@ Training samples every random value of a step on the host from one
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
 
-from .photometric import crop_photometric, photometric
+from .photometric import crop_photometric, fitting_plan, photometric
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -134,11 +135,11 @@ def eval_augment(video, image_size: int = 224, dims=None):
 
 class AugmentParams(NamedTuple):
     """Config-derived parameters of the SSL recipe (`data_augment.py:372-413`).
-    `use_amp` (the config's USE_AMP) selects the crop fused into the
-    photometric kernel on the uint8 canvas, with bf16 output, as the JAX
-    trainer's `mxu_resample` and `bf16_output` do together; otherwise the
-    crop is a plain matmul resample, then the photometric-only kernel writes
-    fp32."""
+    `use_amp` (the config's USE_AMP) selects bf16 output and, where the
+    canvas fits, the crop fused into the photometric kernel on the uint8
+    canvas, as the JAX trainer's `bf16_output` and `mxu_resample` do
+    (`crop_route`); otherwise the crop is a plain matmul resample, then the
+    photometric-only kernel."""
 
     image_size: int = 224
     strength: float = 1.0
@@ -287,27 +288,70 @@ def sample_ssl_batch(gen, B: int, V: int, H: int, W: int, dims,
     return out
 
 
+# fp32 canvas bytes the split route converts at once: 480 frames of a
+# 1080 x 1920 canvas would be ~12 GB in one piece
+SPLIT_CHUNK_BYTES = 1 << 28
+
+
+def crop_route(S: int, H: int, W: int, use_amp: bool) -> str:
+    """Which route `ssl_batch_augment` takes for S x S outputs from an H x W
+    canvas: "crop" (the crop kernel #12 on the uint8 canvas) or "split" (a
+    plain matmul resample, then the photometric-only kernel #11). The JAX
+    package's gate (`fused_ssl_batch_augment`, VRL_FUSED_CROP), read when
+    called: 0 takes the split route, 1 (any value but 0 and auto) the crop
+    kernel, which raises for a canvas it cannot take; auto (or unset) the
+    crop kernel under USE_AMP where `fitting_plan` fits the canvas, else the
+    split route."""
+    env = os.environ.get("VRL_FUSED_CROP", "auto")
+    if env == "auto":
+        return "crop" if use_amp and fitting_plan(S, H, W) is not None else "split"
+    return "split" if env == "0" else "crop"
+
+
+def _split_crop(videos, rh, rw):
+    """The split route's resample of videos (B, V, T, H, W, 3) uint8 by rh
+    (BV, S, H) and rw (BV, W, S) -> (BV, T, 3, S, S) fp32 in [0, 1], a view and
+    a chunk of frames at a time (SPLIT_CHUNK_BYTES of fp32 canvas); every
+    frame's arithmetic is the same as in one call."""
+    B, V, T, H, W, _ = videos.shape
+    S = rh.shape[1]
+    out = torch.empty((B * V, T, 3, S, S), dtype=torch.float32, device=videos.device)
+    frames = max(1, SPLIT_CHUNK_BYTES // (12 * H * W))
+    for i in range(B * V):
+        b, v = divmod(i, V)
+        for f0 in range(0, T, frames):
+            x = videos[b, v, f0:f0 + frames].permute(0, 3, 1, 2).contiguous()
+            x = x.float().div_(255.0)
+            out[i, f0:f0 + frames] = torch.matmul(torch.matmul(rh[i], x), rw[i])
+    return out
+
+
 def ssl_batch_augment(videos, sampled, params: AugmentParams):
     """Two-view SSL augmentation of videos (B, V, T, H, W, 3) uint8 on the
     device with the values of `sample_ssl_batch` -> (B, V, T, S, S, 3)
     normalised frames, a channels-last view of channel-planar memory (the
-    layout the backbone's convolutions read). Under `use_amp` the crop
-    runs inside the crop+photometric kernel on the uint8 canvas; otherwise
-    it is two plain matmuls, then the photometric-only kernel."""
+    layout the backbone's convolutions read), bf16 under `use_amp`, else
+    fp32. `crop_route` picks the route before any launch: the crop inside
+    the crop+photometric kernel on the uint8 canvas, or two plain matmuls,
+    then the photometric-only kernel. `ssl_batch_augment.crop_route` and
+    `.split_route` count the calls each route took."""
     B, V, T, H, W, _ = videos.shape
     S = params.image_size
     dev = videos.device
     m = {k: sampled[k].to(dev, non_blocking=True)
          for k in ("rh", "rw", "fscal", "orders", "mh", "mw")}
     out_dtype = torch.bfloat16 if params.use_amp else torch.float32
-    planar = videos.reshape(B * V, T, H, W, 3).permute(0, 1, 4, 2, 3).contiguous()
-    if params.use_amp:
+    if crop_route(S, H, W, params.use_amp) == "crop":
+        planar = videos.reshape(B * V, T, H, W, 3).permute(0, 1, 4, 2, 3).contiguous()
         out = crop_photometric(planar, m["rh"], m["rw"], m["fscal"],
                                m["orders"], m["mh"], m["mw"], out_dtype)
+        ssl_batch_augment.crop_route += 1
     else:
-        x = planar.float() / 255.0
-        x = torch.matmul(torch.matmul(m["rh"][:, None, None], x),
-                         m["rw"][:, None, None])
-        out = photometric(x, m["fscal"], m["orders"], m["mh"], m["mw"],
-                          out_dtype)
+        out = photometric(_split_crop(videos, m["rh"], m["rw"]), m["fscal"],
+                          m["orders"], m["mh"], m["mw"], out_dtype)
+        ssl_batch_augment.split_route += 1
     return out.view(B, V, T, 3, S, S).permute(0, 1, 2, 4, 5, 3)
+
+
+ssl_batch_augment.crop_route = 0
+ssl_batch_augment.split_route = 0

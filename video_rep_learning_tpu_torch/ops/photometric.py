@@ -23,7 +23,8 @@ per view (`fscal`, `orders`), sampled in `ops/augment.py`.
 The crop kernel runs a frame as a cluster of `CROP_STRIPS` blocks, each
 owning a strip of output rows; `crop_plan` sizes the strips, the chunks a
 strip is computed in, and the shared-memory band of canvas rows a chunk
-reads, and refuses a canvas whose band cannot fit.
+reads, and refuses a canvas whose band cannot fit (`fitting_plan` gives
+None there: `ops/augment.py` then takes the split route).
 
 The kernel takes the resample and blur matrices in compact form, computed
 here from the same dense matrices the plain version multiplies by:
@@ -232,11 +233,11 @@ def band_rows_bound(n, H, S):
     return min(H, (n - 1) * H // S + 5)
 
 
-def crop_plan(S, H, W):
+def fitting_plan(S, H, W):
     """The crop kernel's plan for S x S outputs from an H x W canvas: strips
     of ceil(S / CROP_STRIPS) rows, each one chunk if its rows and band fit
-    CROP_SMEM, else the largest chunk whose rows, halo and band do. Raises
-    ValueError where not even a one-row chunk fits."""
+    CROP_SMEM, else the largest chunk whose rows, halo and band do; None
+    where not even a one-row chunk fits."""
     rows = -(-S // CROP_STRIPS)
     band_cols = -(-W // 16) * 16
     for chunk in range(rows, 0, -1):
@@ -246,9 +247,17 @@ def crop_plan(S, H, W):
         smem = crop_smem(S, pre, band_rows, band_cols, vrows)
         if smem <= CROP_SMEM:
             return CropPlan(rows, chunk, band_rows, band_cols, vrows, smem)
-    raise ValueError(f"a {H} x {W} canvas does not fit the crop kernel's shared "
-                     f"memory at output size {S}: the band of even a one-row "
-                     f"chunk exceeds {CROP_SMEM} bytes")
+    return None
+
+
+def crop_plan(S, H, W):
+    """`fitting_plan`, raising ValueError where the canvas does not fit."""
+    plan = fitting_plan(S, H, W)
+    if plan is None:
+        raise ValueError(f"a {H} x {W} canvas does not fit the crop kernel's shared "
+                         f"memory at output size {S}: the band of even a one-row "
+                         f"chunk exceeds {CROP_SMEM} bytes")
+    return plan
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,10 @@ gradient finite and equal to the plain composition's autograd.
 Per-frame metadata is an (8, N) array: rows step, len, mask, sample, view,
 is_real (and two zero rows). Inputs are padded to a multiple of the kernels'
 64-row tile with all-zero columns, is_real = 0, which take part in no pair.
+The kernels walk only the 64 x 64 tiles that carry work, flagged from the
+metadata by `scl_tiles` (`tiles_reference` takes the same flags from
+`work_pairs`), and split each row tile's column walk over `split_count`
+blocks whose sums are added in split order.
 
 - A CUDA tensor launches the kernel or raises: there is no fallback.
 - A CPU tensor takes the plain version (`*_reference`), the same per-row
@@ -39,12 +43,14 @@ is_real (and two zero rows). Inputs are padded to a multiple of the kernels'
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import cuda_build
 
 TILE = 64  # csrc/scl.cu's rows a block and columns a tile
+_TYPE_NAMES = {torch.float32: "fp32", torch.uint8: "uint8"}
 C_MULTIPLE, MAX_C = 16, 128  # the embedding widths the kernels take
 
 
@@ -188,23 +194,26 @@ def check_width(C):
                          f"{MAX_C}; got C={C}")
 
 
-def _check_inputs(e, meta, rows=None, s=None):
+def _check_inputs(e, meta, rows=None, s=None, tiles=None):
     """e (Np, C) and meta (8, Np), fp32 and contiguous on one device, Np a
-    multiple of TILE; rows (Np, 2) and s (Np,) likewise where given."""
+    multiple of TILE; rows (Np, 2), s (Np,) and tiles (Np / TILE, Np / TILE)
+    uint8 likewise where given."""
     if e.dim() != 2:
         raise ValueError(f"e must be (Np, C), got {tuple(e.shape)}")
     Np, C = e.shape
     check_width(C)
-    want = [("e", e, (Np, C)), ("meta", meta, (8, Np))]
+    want = [("e", e, (Np, C), torch.float32), ("meta", meta, (8, Np), torch.float32)]
     if rows is not None:
-        want.append(("rows", rows, (Np, 2)))
+        want.append(("rows", rows, (Np, 2), torch.float32))
     if s is not None:
-        want.append(("s", s, (Np,)))
-    for name, t, shape in want:
-        if (t.shape != shape or t.dtype != torch.float32 or t.device != e.device
+        want.append(("s", s, (Np,), torch.float32))
+    if tiles is not None:
+        want.append(("tiles", tiles, (Np // TILE, Np // TILE), torch.uint8))
+    for name, t, shape, dtype in want:
+        if (t.shape != shape or t.dtype != dtype or t.device != e.device
                 or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous fp32 {shape} tensor on "
-                             f"{e.device}, got {tuple(t.shape)} {t.dtype} on "
+            raise ValueError(f"{name} must be a contiguous {_TYPE_NAMES[dtype]} {shape} "
+                             f"tensor on {e.device}, got {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}")
     if e.device.type == "cuda" and (Np == 0 or Np % TILE):
         raise ValueError(f"the kernels take Np % {TILE} == 0 rows (pad with "
@@ -219,61 +228,131 @@ def _kernel_args(temperature, label_varience, single, noself):
             int(bool(noself)))
 
 
-# each pass: its plain version, its output's shape, and the csrc/scl.cu
-# entry point that launches it with its trailing int arguments
-_PASSES = {"rowsum": (rowsum_reference, lambda Np, C: (Np, 2), "vrl_scl_rows", (0,)),
-           "loss": (loss_rows_reference, lambda Np, C: (Np,), "vrl_scl_rows", (1,)),
-           "srow": (srow_reference, lambda Np, C: (Np,), "vrl_scl_rows", (2,)),
-           "grad": (grad_reference, lambda Np, C: (Np, C), "vrl_scl_grad", ())}
+def scl_tiles(meta, num_samples, num_views, *, single, noself):
+    """The (Np / TILE, Np / TILE) uint8 flags of the tiles the kernels walk:
+    bit 0 where a pair of the tile is one of `work_pairs`' `pairs` (a
+    nonzero weight or a positive label), bit 1 where one is a positive.
+    Computed from per-tile counts of real, masked and unmasked frames of
+    each (sample, view), with no (Np, Np) buffer and no device sync: a pair
+    of two real frames has weight 1e-6 where either is masked, else the
+    negative type's 0 or 1 (`single`: same sample; `noself`: not the same
+    view), and is a positive where both are unmasked and of one sample's two
+    views. `meta` rows sample and view hold ids below num_samples and
+    num_views (`build_meta`), masks are 0 or 1."""
+    Np = meta.shape[1]
+    nT, groups = Np // TILE, num_samples * num_views
+    dev = meta.device
+    real = meta[5] != 0
+    tile = torch.arange(Np, device=dev) // TILE
+    group = (meta[3] * num_views + meta[4]).long().clamp_(0, groups - 1)
+    slot = tile * groups + group
+
+    def count(sel):  # (nT, groups): frames of each tile in each (sample, view)
+        n = torch.zeros(nT * groups, device=dev).index_add_(0, slot, sel.float())
+        return n.view(nT, groups)
+
+    n_sv, u_sv = count(real), count(real & (meta[2] > 0))
+    n_s = n_sv.view(nT, num_samples, num_views).sum(2)
+    u_s = u_sv.view(nT, num_samples, num_views).sum(2)
+    n, k = n_sv.sum(1), n_sv.sum(1) - u_sv.sum(1)  # real frames, masked ones
+    same_view = n_sv @ n_sv.t()
+    weighted = n_s @ n_s.t() if single else n[:, None] * n[None, :]
+    if noself:
+        weighted = weighted - same_view
+    masked = k[:, None] * n[None, :] + n[:, None] * k[None, :]
+    pairs = (weighted > 0) | (masked > 0)
+    positives = (u_s @ u_s.t() - u_sv @ u_sv.t()) > 0
+    return (pairs.to(torch.uint8) | (positives.to(torch.uint8) << 1)).contiguous()
 
 
-def _run_pass(wrapper, name, e, meta, rows=None, s=None, **params):
-    """Pass `name` on e's device: the plain version on a CPU tensor, else the
-    kernel, counted on `wrapper.launches`. `vrl_scl_rows` takes the pointers
-    e, meta, rows (None for pass 1), out; `vrl_scl_grad` e, meta, rows, s,
-    de; both then Np, C, tau, var, single, noself, the pass's ints, stream."""
-    Np, C = _check_inputs(e, meta, rows, s)
-    reference, out_shape, symbol, extra = _PASSES[name]
+def tiles_reference(meta, *, single, noself):
+    """`scl_tiles` from `work_pairs` itself, tile by tile."""
+    nT = meta.shape[1] // TILE
+    pairs, positives = work_pairs(meta, single=single, noself=noself)
+    per_tile = lambda m: m.view(nT, TILE, nT, TILE).any(3).any(1)  # noqa: E731
+    return (per_tile(pairs).to(torch.uint8)
+            | (per_tile(positives).to(torch.uint8) << 1))
+
+
+def split_count(nT, sms, per_sm):
+    """Blocks that walk one row tile's columns: enough for `per_sm` blocks
+    on each of the card's `sms` SMs, at most one a column tile."""
+    return max(1, min(nT, -(-per_sm * sms // nT)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# each pass: its plain version, its output's shape, its csrc/scl.cu number
+# and the blocks an SM its column splits aim at (the gradient's scratch
+# slices are (Np, C) each: two, which keep N 8640's peak memory at the
+# size of the inputs)
+_PASSES = {"rowsum": (rowsum_reference, lambda Np, C: (Np, 2), 0, 8),
+           "loss": (loss_rows_reference, lambda Np, C: (Np,), 1, 8),
+           "srow": (srow_reference, lambda Np, C: (Np,), 2, 8),
+           "grad": (grad_reference, lambda Np, C: (Np, C), 3, 2)}
+
+
+def _run_pass(wrapper, name, e, meta, rows=None, s=None, tiles=None, **params):
+    """Pass `name` on e's device: the plain version on a CPU tensor (every
+    pair, `tiles` unused), else the kernel, counted on `wrapper.launches`:
+    `vrl_scl_pass` over the tiles `tiles` flags (every tile where None), in
+    `split_count` column splits, then `vrl_scl_sum_splits` adding the
+    splits' scratch slices to the output in order."""
+    Np, C = _check_inputs(e, meta, rows, s, tiles)
+    reference, out_shape, code, per_sm = _PASSES[name]
     if e.device.type == "cpu":
         return reference(*(t for t in (e, meta, rows, s) if t is not None), **params)
-    ins = (e, meta, rows) + ((s,) if name == "grad" else ())
+    splits = split_count(Np // TILE, _sm_count(e.device.index or 0), per_sm)
     out = torch.empty(out_shape(Np, C), dtype=torch.float32, device=e.device)
-    fn = cuda_build.kernel_fn("scl", symbol, (ctypes.c_void_p,) * (len(ins) + 1)
+    scratch = (torch.empty((splits - 1,) + out.shape, dtype=torch.float32, device=e.device)
+               if splits > 1 else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    fn = cuda_build.kernel_fn("scl", "vrl_scl_pass", (ctypes.c_void_p,) * 7
                               + (ctypes.c_int,) * 2 + (ctypes.c_float,) * 2
-                              + (ctypes.c_int,) * (2 + len(extra)) + (ctypes.c_void_p,))
+                              + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
     with torch.cuda.device(e.device):
-        err = fn(*(None if t is None else t.data_ptr() for t in ins), out.data_ptr(),
-                 Np, C, *_kernel_args(**params), *extra,
-                 torch.cuda.current_stream(e.device).cuda_stream)
-    cuda_build.check_launch("scl", err)
+        stream = torch.cuda.current_stream(e.device).cuda_stream
+        err = fn(ptr(e), ptr(meta), ptr(rows), ptr(s), ptr(tiles), ptr(out), ptr(scratch),
+                 Np, C, *_kernel_args(**params), code, splits, stream)
+        cuda_build.check_launch("scl", err)
+        if scratch is not None:
+            add = cuda_build.kernel_fn("scl", "vrl_scl_sum_splits",
+                                       (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 2
+                                       + (ctypes.c_void_p,))
+            cuda_build.check_launch("scl", add(ptr(out), ptr(scratch), out.numel(),
+                                               splits, stream))
     wrapper.launches += 1
     return out
 
 
-def scl_rowsum(e, meta, **params):
+def scl_rowsum(e, meta, tiles=None, **params):
     """Pass 1 (`_rowsum_kernel`): (Np, 2) negsum, possum. CUDA tensors go
-    through the kernel, CPU tensors through `rowsum_reference`; `params` are
-    temperature, label_varience, single, noself. `scl_rowsum.launches` counts
-    kernel launches."""
-    return _run_pass(scl_rowsum, "rowsum", e, meta, **params)
+    through the kernel, over the tiles `tiles` (`scl_tiles`) flags or every
+    tile, CPU tensors through `rowsum_reference`; `params` are temperature,
+    label_varience, single, noself. `scl_rowsum.launches` counts kernel
+    launches."""
+    return _run_pass(scl_rowsum, "rowsum", e, meta, tiles=tiles, **params)
 
 
-def scl_loss_rows(e, meta, rows, **params):
+def scl_loss_rows(e, meta, rows, tiles=None, **params):
     """Pass 2 (`_loss_kernel`): (Np,) KL row sums from pass 1's rows, else as
     `scl_rowsum` with `loss_rows_reference`."""
-    return _run_pass(scl_loss_rows, "loss", e, meta, rows, **params)
+    return _run_pass(scl_loss_rows, "loss", e, meta, rows, tiles=tiles, **params)
 
 
-def scl_srow(e, meta, rows, **params):
+def scl_srow(e, meta, rows, tiles=None, **params):
     """Pass 3 (`_srow_kernel`): (Np,) S row sums, else as `scl_rowsum` with
     `srow_reference`."""
-    return _run_pass(scl_srow, "srow", e, meta, rows, **params)
+    return _run_pass(scl_srow, "srow", e, meta, rows, tiles=tiles, **params)
 
 
-def scl_grad(e, meta, rows, s, **params):
+def scl_grad(e, meta, rows, s, tiles=None, **params):
     """Pass 4 (`_grad_kernel`): (Np, C) unscaled gradient, else as
     `scl_rowsum` with `grad_reference`."""
-    return _run_pass(scl_grad, "grad", e, meta, rows, s, **params)
+    return _run_pass(scl_grad, "grad", e, meta, rows, s, tiles=tiles, **params)
 
 
 for _fn in (scl_rowsum, scl_loss_rows, scl_srow, scl_grad):
@@ -337,9 +416,10 @@ def _flags(negative_type):
 
 
 class SCLFused(torch.autograd.Function):
-    """`scl_loss_fused`'s custom vjp: the forward runs passes 1 and 2 and
-    keeps e, meta, the row sums and mask_sum (O(N C)); the backward runs
-    passes 3 and 4 and scales by g / (mask_sum tau)."""
+    """`scl_loss_fused`'s custom vjp: the forward flags the tiles that carry
+    work (`scl_tiles`), runs passes 1 and 2 over them and keeps e, meta, the
+    row sums, mask_sum and the flags (O(N C)); the backward runs passes 3
+    and 4 and scales by g / (mask_sum tau)."""
 
     @staticmethod
     def forward(ctx, embs, seq_lens, steps, masks, temperature, label_varience,
@@ -349,22 +429,23 @@ class SCLFused(torch.autograd.Function):
         e = embs.detach().reshape(B * V * T, C).float()
         meta = build_meta(seq_lens, steps, masks)
         e, meta = pad_inputs(e, meta, block_layout(B * V * T))
-        params = dict(temperature=temperature, label_varience=label_varience,
-                      **_flags(negative_type))
-        rows = scl_rowsum(e, meta, **params)
-        loss_rows = scl_loss_rows(e, meta, rows, **params)
+        flags = _flags(negative_type)
+        params = dict(temperature=temperature, label_varience=label_varience, **flags)
+        tiles = scl_tiles(meta, B, V, **flags)
+        rows = scl_rowsum(e, meta, tiles, **params)
+        loss_rows = scl_loss_rows(e, meta, rows, tiles, **params)
         mask_sum = (meta[2] * meta[5]).sum()
-        ctx.save_for_backward(e, meta, rows, mask_sum)
+        ctx.save_for_backward(e, meta, rows, mask_sum, tiles)
         ctx.params = params
         ctx.shape, ctx.dtype = embs.shape, embs.dtype
         return loss_rows.sum() / mask_sum
 
     @staticmethod
     def backward(ctx, g):
-        e, meta, rows, mask_sum = ctx.saved_tensors
+        e, meta, rows, mask_sum, tiles = ctx.saved_tensors
         p = ctx.params
-        s = scl_srow(e, meta, rows, **p)
-        de = scl_grad(e, meta, rows, s, **p) * (g / (mask_sum * p["temperature"]))
+        s = scl_srow(e, meta, rows, tiles, **p)
+        de = scl_grad(e, meta, rows, s, tiles, **p) * (g / (mask_sum * p["temperature"]))
         B, V, T, C = ctx.shape
         dembs = de[:B * V * T].reshape(B, V, T, C).to(ctx.dtype)
         return dembs, None, None, None, None, None, None
