@@ -12,8 +12,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build: nvcc builds every `video_rep_learning_tpu_torch/csrc/*.cu`, one
    compiler per source, all at once; each kernel's registers, stack and
    spills as ptxas reports them (those of the tensor-core kernels of #1,
-   #3, #9, #10, 13c-13e and 13f and of #12's cluster kernel go into the
-   `kernels` line);
+   #3, #9, #10, 13c-13e and 13f, of the cluster kernels of #12 and #11 and
+   of the elementwise chain go into the `kernels` line), and the chain's
+   loops in its SASS (`tools/sass_loops.py`: the instructions of a rep);
 3. kernel vs plain, and times beside the plain version, the bound and the
    library call where there is one:
    - flash-attention forward and backward in fp32 and bf16 at the CARL
@@ -23,7 +24,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    - crop+photometric and photometric at the CARL training shape
      (2 views x 240 frames of 256x256 uint8 -> 224), every flag, blur sigma
      0.1 and 2.0, a padded canvas, fp32 and bf16 output, and bit for bit
-     against a second launch; then one 1080 x 1920 clip through
+     against a second launch; photometric also at S 9, 100, 222 (rows of
+     36 and 888 bytes, off the bulk copy's 16) and 512 (strips in chunks),
+     contrast at each of the four positions, bit for bit against a second
+     launch; then one 1080 x 1920 clip through
      `ssl_batch_augment` under USE_AMP, which the crop kernel's plan
      refuses: its route counter must say split;
    - the ViT kernels (LayerNorm, LN + matmul + bias + activation with each
@@ -89,9 +93,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    `bench_vpu_bf16.py`), each through its `run("cuda")` at the TPU script's
    shapes: #6 in both TPU schedules' rows beside #8 + #7, the packed-attention
    variants beside #4 at B = 40 and 160, the int8 and bf16 tensor-core GEMM,
-   the elementwise chain in three modes; every row held against its plain
-   version (tolerances above `TOOLS`), timed beside its plain version,
-   library call and bound. None of their four kernels launches on the model
+   the elementwise chain in three modes (also on NaN, ±inf and values
+   outside [0, 1]: NaN where the plain version has NaN, bit for bit
+   elsewhere); every row held against its plain version (tolerances above
+   `TOOLS`), timed beside its plain version, library call and bound. None of their four kernels launches on the model
    paths of phases 4-13.
 Phase 3 also holds #7 (matmul + GELU) and #9 (the LN-MLP half-block)
 against their plain versions, times #9 at 480 frames too, and checks the
@@ -279,18 +284,43 @@ def phase_build():
     missing = [PTXAS_KERNELS[e][1] for e, found in built.items() if not found]
     if missing:
         raise AssertionError(f"ptxas reported no {missing}")
-    return built
+    return built, chain_sass(libs["elementwise_chain"])
+
+
+def chain_sass(lib):
+    """The longest loop (the reps loop) of each `chain_kernel<MODE>` in the
+    library's SASS, its instructions by opcode (`tools/sass_loops.py`)."""
+    from video_rep_learning_tpu_torch.tools import sass_loops
+
+    try:
+        found = sass_loops.report(lib)
+    except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
+        log(f"SASS of chain_kernel not read ({e}): not measured")
+        return None
+    out = {}
+    for name, lps in found.items():
+        if not lps:
+            continue
+        mode = name.split("chain_kernelILi")[1].split("E")[0]
+        lp = max(lps, key=lambda x: x["instructions"])
+        out[f"chain_kernel<{mode}>"] = lp
+        log(f"SASS chain_kernel<{mode}>: reps loop {lp['start']}-{lp['end']}, "
+            f"{lp['instructions']} instructions {lp['opcodes']}; every loop: "
+            + "; ".join(f"{x['instructions']} ({x['start']}-{x['end']})" for x in lps))
+    return out
 
 
 # the `kernels` line's entries that carry their kernel's ptxas report (the
-# tensor-core kernels of #9, 13c-13e, 13f, #1, #3 and #10, and #12's cluster
-# kernel): entry: (source under csrc/, kernel)
+# tensor-core kernels of #9, 13c-13e, 13f, #1, #3 and #10, the cluster
+# kernels of #12 and #11, and 13g's chain): entry: (source under csrc/, kernel)
 PTXAS_KERNELS = {"ln_mlp_block": ("mlp_block", "mlp_wgmma_kernel"),
                  "packed_attn_variant": ("packed_attn_variants", "attn_variant_wgmma_kernel"),
                  "int8_gemm": ("int8_gemm", "gemm_wgmma_kernel"),
                  "flash_attn_fwd": ("flash_attn_fwd", "flash_fwd_mma_kernel"),
                  "flash_attn_bwd": ("flash_attn_bwd", "flash_bwd_mma_kernel"),
                  "crop_photometric": ("photometric", "crop_strip_kernel"),
+                 "photometric": ("photometric", "photometric_strip_kernel"),
+                 "elementwise_chain": ("elementwise_chain", "chain_kernel"),
                  # one kernel, a template instance a pass (scl_pass_kernel<0..3>)
                  **{name: ("scl", "scl_pass_kernel") for name in
                     ("scl_rowsum", "scl_loss_rows", "scl_srow", "scl_grad")}}
@@ -580,6 +610,8 @@ def phase_augment():
               photometric_reference(*args, out_dtype=dtype), dtype,
               "16 flag combinations, sigma 0.1/2.0")
 
+    tail_cases = photometric_cases(g, check)
+
     # the training shape: 2 views x 240 frames, 256x256 uint8 -> 224
     BV, T = 2, 240
     entries = {}
@@ -614,8 +646,65 @@ def phase_augment():
         log(f"time {name} ({BV}, {T}) -> {S} {str(dtype)[6:]} out: kernel "
             f"{ms:.4f} ms (host {host_ms:.4f} ms a call), plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), library none")
+    # #11's time by what its views switch on, on the same frames (gray and
+    # flip off): the staging, normalisation and 16-byte stores alone; with
+    # the jitter ops and the cluster's mean; with the blur and its halo read
+    # from the neighbours; with both
+    parts = {}
+    for what, jit, blur in (("stage+store", 0, 0), ("jitter", 1, 0), ("blur", 0, 1),
+                            ("jitter+blur", 1, 1)):
+        f = s["fscal"].clone()
+        f[:, 0], f[:, 5], f[:, 6], f[:, 7] = jit, blur, 0, 0
+        parts[what] = cuda_ms(lambda: photometric(x, f, s["orders"], s["mh"], s["mw"]))[0]
+    entries["photometric"]["parts"] = parts
+    log("time photometric by the views' flags (ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
     entries["photometric"]["at_1080p_split_route"] = augment_1080p(g, S)
+    entries["photometric"]["tail_cases"] = tail_cases
     return entries
+
+
+# photometric's frame sizes beyond the training shape: rows of 36 bytes and
+# a strip of one row (9), 7-row strips (100), rows of 888 bytes (222; both
+# off the bulk copy's 16-byte rows), strips in chunks with the mean in a
+# sweep of its own (512)
+TAIL_SIZES = (9, 100, 222, 512)
+
+
+def photometric_cases(g, check, T=2):
+    """photometric at TAIL_SIZES: four views with jitter on, contrast at
+    position 0, 1, 2 and 3 of their op orders, blur on two (sigma 0.1 and
+    2.0), gray on one, flip on two; fp32 and bf16 output against the plain
+    version, and a second launch bit for bit."""
+    from video_rep_learning_tpu_torch.ops.augment import ssl_matrices
+    from video_rep_learning_tpu_torch.ops.photometric import (photometric,
+                                                              photometric_reference)
+
+    BV = 4
+    fscal = torch.zeros(BV, 8)
+    fscal[:, 0] = 1
+    fscal[:, 1:4] = torch.rand(BV, 3, generator=g) + 0.5
+    fscal[:, 4] = torch.rand(BV, generator=g) * 0.4 - 0.2
+    fscal[:, 5] = torch.tensor([1.0, 0.0, 1.0, 0.0])
+    fscal[1, 6] = 1
+    fscal[2:, 7] = 1
+    orders = torch.tensor([[1, 0, 2, 3], [0, 1, 2, 3], [2, 3, 1, 0], [3, 0, 2, 1]],
+                          dtype=torch.int32)
+    done = []
+    for S in TAIL_SIZES:
+        m = ssl_matrices(torch.tensor([(0.0, 0.0, S, S)] * BV),
+                         torch.tensor([0.1, 2.0, 0.1, 2.0]), S, S, S)
+        x = torch.rand(BV, T, 3, S, S, generator=g)
+        args = tuple(t.cuda() for t in (x, fscal, orders, m["mh"], m["mw"]))
+        for dtype in (torch.float32, torch.bfloat16):
+            got = photometric(*args, out_dtype=dtype)
+            check("photometric", got, photometric_reference(*args, out_dtype=dtype), dtype,
+                  f"S {S}, contrast at each position")
+            if not torch.equal(got, photometric(*args, out_dtype=dtype)):
+                raise AssertionError(f"photometric differs between two launches (S {S})")
+        done.append(S)
+    log(f"photometric at S {done}: a second launch bit-identical in fp32 and bf16")
+    return done
 
 
 def augment_1080p(g, S, T=240):
@@ -645,6 +734,11 @@ def augment_1080p(g, S, T=240):
         ms, host_ms = cuda_ms(lambda: aug.ssl_batch_augment(videos, sampled, p), reps=3,
                               warmup=1)
     m = {k: t.cuda() for k, t in sampled.items()}
+    # #11's share of the route: the photometric launch alone on the resample
+    cropped = aug._split_crop(videos, m["rh"], m["rw"])
+    tail_ms = cuda_ms(lambda: photometric(cropped, m["fscal"], m["orders"], m["mh"], m["mw"],
+                                          torch.bfloat16), reps=10, warmup=2)[0]
+    del cropped
     planar = videos.reshape(B * V, T, H, W, 3).permute(0, 1, 4, 2, 3).contiguous()
     want = crop_photometric_reference(planar, m["rh"], m["rw"], m["fscal"], m["orders"],
                                       m["mh"], m["mw"], torch.bfloat16)
@@ -656,13 +750,13 @@ def augment_1080p(g, S, T=240):
     log(f"ssl_batch_augment under USE_AMP, {B * V} x {T} frames of {H} x {W} -> {S}: "
         f"routes crop/split/#12/#11 {taken} (split expected), err {err:.3e} against the "
         f"plain pipeline (tol {AUG_TOL[torch.bfloat16]:.1e}), peak {peak:.1f} MiB above "
-        f"the canvas (the fp32 canvas in one piece {whole:.1f} MiB), {ms:.3f} ms "
-        f"{'ok' if ok else 'FAIL'}")
+        f"the canvas (the fp32 canvas in one piece {whole:.1f} MiB), {ms:.3f} ms, of which "
+        f"#11 {tail_ms:.4f} ms {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the split route of a 1080 x 1920 canvas failed")
     del videos, planar, want, out
     torch.cuda.empty_cache()
-    return dict(ms=ms, host_ms=host_ms, max_abs_err=err, peak_mib=peak)
+    return dict(ms=ms, host_ms=host_ms, max_abs_err=err, peak_mib=peak, photometric_ms=tail_ms)
 
 
 def phase_vit_kernels():
@@ -2191,7 +2285,7 @@ def phase_tools(card):
     the phase (each tool's check launch and its timed launches)."""
     import importlib
 
-    from video_rep_learning_tpu_torch.tools import common
+    from video_rep_learning_tpu_torch.tools import bench_vpu_bf16, common
 
     _reset_launches()
     rows = {}
@@ -2231,6 +2325,10 @@ def phase_tools(card):
             entries[kernel]["slopes_ms"] = {
                 x["name"]: dict(reps_6_480=x["slope_ms"], spread=x["slope_spread_ms"],
                                 reps_6_48=x["slope_6_48_ms"]) for x in rows[tool]}
+            # NaN, ±inf and out-of-range values, each mode (a row is ok only with it)
+            entries[kernel]["special_ok"] = {x["name"]: x["special_ok"] for x in rows[tool]}
+            log(f"elementwise_chain on NaN / ±inf / out-of-range values at REPS "
+                f"{bench_vpu_bf16.SPECIAL_REPS}: {entries[kernel]['special_ok']}")
     # rows 13a and 13b: both TPU schedules' rows run #6
     entries["ln_gemm_tools"] = dict(
         rows_ms={x["name"]: x["ms"] for x in rows["bench_ln_matmul"]},
@@ -2272,7 +2370,7 @@ def main():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only "
                  "on the GPU")
     card = phase_environment()
-    ptxas = phase_build()
+    ptxas, sass = phase_build()
     data_root, lens = make_synthetic_set()
     fwd_err = phase_kernel_vs_plain(lens)
     entries = phase_attention_backward()
@@ -2313,9 +2411,10 @@ def main():
     tool_entries, tool_launches = phase_tools(card)
     entries["ln_gemm"].update(tool_entries.pop("ln_gemm_tools"))
     entries.update(tool_entries)
-    # the kernels as built (#9, 13c-13e, 13f, #3, #12): registers, stack, spills
+    # the kernels as built (PTXAS_KERNELS): registers, stack, spills; 13g's SASS
     for name, built in ptxas.items():
         entries[name]["ptxas"] = built
+    entries["elementwise_chain"]["sass_reps_loop"] = sass
     kernels = []
     for name, (src, replaces, *also) in SOURCES.items():
         if name in TOOL_ENTRIES:
@@ -2351,7 +2450,8 @@ def main():
             "host_ms": e["host_ms"],
             **{k: v for k, v in e.items() if k.endswith("_480")
                or k.startswith("at_") or k in ("row", "rows_ms", "rows_err", "rows_ms_b160", "slopes_ms",
-                        "parts", "ptxas", "mvf_eval_fused_mlp", "no_mask")}})
+                        "parts", "ptxas", "mvf_eval_fused_mlp", "no_mask", "sass_reps_loop",
+                        "special_ok", "tail_cases")}})
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ from video_rep_learning_tpu_torch.ops import (elementwise_chain, int8_matmul)
 from video_rep_learning_tpu_torch.ops import (attention, layernorm, matmul,
                                               photometric, scl, vit_block)
 from video_rep_learning_tpu_torch.tools import (bench_attn_variants,
-                                                bench_packed_attn)
+                                                bench_packed_attn, bench_vpu_bf16)
 
 pytestmark = pytest.mark.cuda
 
@@ -308,17 +308,75 @@ def test_split_route_takes_a_1080p_canvas(cuda, monkeypatch, capsys):
     assert peak < whole / 2
 
 
+def _tail_case(cuda, S, jitter, contrast_at, T=2, seed=0):
+    """Four views of cropped fp32 frames: contrast at position `contrast_at`
+    of every view's op order (the others rolled around it), blur on every
+    other view (sigma 0.1 / 2.0), gray on the second, flip on the third and
+    fourth; jitter on or off."""
+    from video_rep_learning_tpu_torch.ops import augment as aug
+
+    gen = torch.Generator().manual_seed(seed)
+    BV = 4
+    fscal = torch.zeros(BV, 8)
+    fscal[:, 1:4] = torch.rand(BV, 3, generator=gen) + 0.5
+    fscal[:, 4] = torch.rand(BV, generator=gen) * 0.4 - 0.2
+    fscal[:, 0] = float(jitter)
+    fscal[:, 5] = torch.tensor([1.0, 0.0, 1.0, 0.0])
+    fscal[1, 6] = 1
+    fscal[2:, 7] = 1
+    orders = []
+    for i in range(BV):
+        rest = torch.roll(torch.tensor([0, 2, 3]), i).tolist()
+        orders.append(rest[:contrast_at] + [1] + rest[contrast_at:])
+    orders = torch.tensor(orders, dtype=torch.int32)
+    boxes = torch.tensor([(0.0, 0.0, S, S)] * BV)
+    m = aug.ssl_matrices(boxes, torch.tensor([0.1, 2.0, 0.1, 2.0]), S, S, S)
+    x = torch.rand(BV, T, 3, S, S, generator=gen)
+    return tuple(t.to(cuda) for t in (x, fscal, orders, m["mh"], m["mw"]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-def test_photometric_matches_plain(cuda, dtype):
-    s, _ = _aug_case(cuda, "all", seed=1)
-    x = torch.rand(4, 3, 3, 224, 224, device=cuda)
-    args = (x, s["fscal"], s["orders"], s["mh"], s["mw"])
+@pytest.mark.parametrize("contrast_at", [0, 1, 2, 3])
+@pytest.mark.parametrize("jitter", [True, False], ids=["jitter", "no_jitter"])
+# S 9: rows of 36 bytes (4-byte loads, no bulk copy), five strips empty;
+# S 100: 7-row strips, rows of 400 bytes (bulk copies, 4-byte stores);
+# S 224: the training shape; S 512: strips in chunks, the mean in a sweep of
+# its own
+@pytest.mark.parametrize("S", [9, 100, 224, 512])
+def test_photometric_matches_plain(cuda, S, jitter, contrast_at, dtype):
+    args = _tail_case(cuda, S, jitter, contrast_at)
     before = photometric.photometric.launches
     out = photometric.photometric(*args, out_dtype=dtype)
     torch.cuda.synchronize()
     assert photometric.photometric.launches == before + 1
     want = photometric.photometric_reference(*args, out_dtype=dtype)
+    assert out.shape == want.shape and out.dtype == dtype
     assert (out.float() - want.float()).abs().max().item() <= AUG_TOL[dtype]
+
+
+@pytest.mark.parametrize("S", [9, 100, 224, 512])
+def test_photometric_is_deterministic(cuda, S):
+    """The frame mean is summed in a fixed order across the cluster: two
+    launches agree bit for bit."""
+    args = _tail_case(cuda, S, True, 2, seed=1)
+    first = photometric.photometric(*args, out_dtype=torch.float32)
+    second = photometric.photometric(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_photometric_refuses_grad(cuda):
+    """Frames that require grad with grad mode on would lose their gradient
+    through the kernel: refused before any launch; with grad mode off the
+    kernel runs."""
+    x, fscal, orders, mh, mw = _tail_case(cuda, 100, True, 0)
+    before = photometric.photometric.launches
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        photometric.photometric(x.requires_grad_(), fscal, orders, mh, mw)
+    assert photometric.photometric.launches == before
+    with torch.no_grad():
+        photometric.photometric(x, fscal, orders, mh, mw)
+    assert photometric.photometric.launches == before + 1
 
 
 # ---------------------------------------------------------------------------
@@ -828,16 +886,33 @@ def test_tc_matmul_matches_plain(cuda, M, K, F, dtype):
 
 
 @pytest.mark.parametrize("mode", list(elementwise_chain.MODES), ids=str)
-@pytest.mark.parametrize("n", [4096, 1003])
-def test_elementwise_chain_matches_plain_bit_for_bit(cuda, n, mode):
+@pytest.mark.parametrize("reps", [0, 1, 7, 480])
+# 4096: whole blocks of 256 threads x 8 values; 1003 and 4101: a last thread
+# with fewer than 8 values (an odd count in bf16), in a part-filled block
+@pytest.mark.parametrize("n", [4096, 1003, 4101])
+def test_elementwise_chain_matches_plain_bit_for_bit(cuda, n, reps, mode):
     store, math = mode
     g = torch.Generator().manual_seed(14)
     x = torch.rand(n, generator=g).to(cuda, store)
     before = elementwise_chain.elementwise_chain.launches
-    got = elementwise_chain.elementwise_chain(x, 7, math)
+    got = elementwise_chain.elementwise_chain(x, reps, math)
     torch.cuda.synchronize()
     assert elementwise_chain.elementwise_chain.launches == before + 1
-    assert torch.equal(got, elementwise_chain.elementwise_chain_reference(x, 7, math))
+    assert torch.equal(got, elementwise_chain.elementwise_chain_reference(x, reps, math))
+
+
+@pytest.mark.parametrize("mode", list(elementwise_chain.MODES), ids=str)
+@pytest.mark.parametrize("reps", [0, 1, 2, 5, 48])
+def test_elementwise_chain_keeps_nan(cuda, reps, mode):
+    """NaN, ±inf, -0.5, 1.5, -0.0 and values at the threshold: NaN where the
+    plain version (torch.clamp) keeps NaN, the same bits everywhere else."""
+    store, math = mode
+    x = bench_vpu_bf16.special_values(store, cuda)
+    got = elementwise_chain.elementwise_chain(x, reps, math)
+    want = elementwise_chain.elementwise_chain_reference(x, reps, math)
+    torch.cuda.synchronize()
+    assert int(torch.isnan(want).sum()) == 2
+    assert bench_vpu_bf16.same_or_both_nan(got, want)
 
 
 def test_micro_benchmark_kernels_reject_bad_input(cuda):

@@ -391,3 +391,112 @@ def test_crop_kernel_takes_a_planned_canvas(monkeypatch):
     monkeypatch.setattr(ph, "_library", no_library)
     with pytest.raises(AssertionError, match="reached the kernel"):
         ph.crop_photometric(*_crop_args(S=224, H=1024, W=768), out_dtype=torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the photometric-only kernel (#11) on the same strip design: its plan and
+# its refusals
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [9, 100, 222, 224, 480, 481, 512])
+def test_photometric_plan_holds_every_strip(S):
+    """The fp32 source's plan covers the frame with CROP_STRIPS strips, fits
+    the H100's shared memory with no band and no taps, takes the largest
+    chunk that fits, and every range of rows a block stages (a strip's, or a
+    chunk's with the blur's halo clipped to the frame) fits the rows it
+    holds."""
+    plan = ph.photometric_plan(S)
+    assert plan.rows == -(-S // ph.CROP_STRIPS) and plan.band_rows == plan.band_cols == 0
+    assert 1 <= plan.chunk <= plan.rows
+    assert 1 <= plan.vrows <= min(plan.chunk, ph.CROP_VROWS)
+    pre = ph.pre_rows(S, plan.rows, plan.chunk)
+    assert plan.smem == ph.crop_smem(S, pre, 0, 0, plan.vrows, taps=False) <= ph.CROP_SMEM
+    if plan.chunk < plan.rows:
+        bigger = plan.chunk + 1
+        assert ph.crop_smem(S, ph.pre_rows(S, plan.rows, bigger), 0, 0,
+                            min(ph.CROP_VROWS, bigger), taps=False) > ph.CROP_SMEM
+    for ra, rb in _chunks(plan, S, ph.CROP_HALO):
+        assert 0 <= ra < rb <= S and rb - ra <= pre, (ra, rb, pre)
+    owned = [y for y0 in range(0, S, plan.rows)
+             for c0 in range(y0, min(S, y0 + plan.rows), plan.chunk)
+             for y in range(c0, min(S, y0 + plan.rows, c0 + plan.chunk))]
+    assert owned == list(range(S))
+
+
+def test_photometric_plan_at_the_training_shape():
+    """At S 224 a strip is one 14-row chunk and three blocks fit an SM's 228
+    KB (the crop kernel's occupancy); at S 512 strips are chunked."""
+    plan = ph.photometric_plan(224)
+    assert plan[:2] == (14, 14) and 3 * (plan.smem + 1024) <= 228 * 1024
+    plan = ph.photometric_plan(512)
+    assert plan.rows == 32 and plan.chunk < plan.rows
+
+
+def _tail_args(S=32, T=1, dtype=torch.float32, shape=None):
+    BV = 2
+    videos = torch.zeros(shape or (BV, T, 3, S, S), dtype=dtype)
+    fscal, orders = torch.zeros(BV, 8), torch.zeros(BV, 4, dtype=torch.int32)
+    mh, mw = torch.zeros(BV, S, S), torch.zeros(BV, S, S)
+    return videos, fscal, orders, mh, mw
+
+
+def _with_grad(i):
+    args = list(_tail_args())
+    args[i] = args[i].requires_grad_()
+    return tuple(args)
+
+
+TAIL_REFUSALS = {  # case: (the arguments, the error, what it names)
+    "S 8": (_tail_args(S=8), ValueError, "output size 8"),
+    "S 513": (_tail_args(S=513), ValueError, "output size 513"),
+    "uint8 frames": (_tail_args(dtype=torch.uint8), ValueError, "fp32"),
+    "not square": (_tail_args(shape=(2, 1, 3, 32, 40)), ValueError, r"\(BV, T, 3, S, S\)"),
+    "65536 frames": ((torch.zeros(1, 1, 1, 1, 1).expand(2, 65536, 3, 32, 32),)
+                     + _tail_args()[1:], ValueError, "65535"),
+    "videos require grad": (_with_grad(0), RuntimeError, "records no gradient"),
+    "fscal requires grad": (_with_grad(1), RuntimeError, "records no gradient"),
+    "mh requires grad": (_with_grad(3), RuntimeError, "records no gradient"),
+    "mw requires grad": (_with_grad(4), RuntimeError, "records no gradient"),
+}
+
+
+def _as_if_cuda(monkeypatch):
+    """`use_kernel` as it answers for a CUDA tensor (its grad check, then
+    "kernel"), and a library that fails the test if reached."""
+    from video_rep_learning_tpu_torch.ops.plain_grad import refuse_grad
+
+    def no_library(*args, **kwargs):
+        raise AssertionError("the wrapper reached the kernel")
+
+    def cuda_answer(name, x, *inputs):
+        refuse_grad(name, x, *inputs)
+        return True
+
+    monkeypatch.setattr(ph, "use_kernel", cuda_answer)
+    monkeypatch.setattr(ph, "_library", no_library)
+
+
+@pytest.mark.parametrize("case", list(TAIL_REFUSALS))
+def test_photometric_kernel_refuses_before_any_launch(monkeypatch, case):
+    """What photometric_strip_kernel does not take (S outside 9..512, frames
+    other than fp32 (BV, T, 3, S, S), more frames a view than the grid's
+    65535) and a launch that would drop a gradient (the frames, the flags or
+    the blur matrices require grad with grad mode on) are refused before the
+    library is built or launched."""
+    _as_if_cuda(monkeypatch)
+    args, error, match = TAIL_REFUSALS[case]
+    before = ph.photometric.launches
+    with pytest.raises(error, match=match):
+        ph.photometric(*args, out_dtype=torch.float32)
+    assert ph.photometric.launches == before
+
+
+@pytest.mark.parametrize("S", [9, 224, 512])
+def test_photometric_kernel_takes_planned_frames(monkeypatch, S):
+    """The same forced route reaches the library with frames it takes, with
+    grad mode off for inputs that require grad."""
+    _as_if_cuda(monkeypatch)
+    args = _tail_args(S=S)
+    args[0].requires_grad_()
+    with torch.no_grad(), pytest.raises(AssertionError, match="reached the kernel"):
+        ph.photometric(*args, out_dtype=torch.bfloat16)

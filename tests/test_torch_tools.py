@@ -27,7 +27,9 @@ The seven `pallas_call` sites:
   rounds the product and the sum: at most one fp32 rounding of values
   below 1 a rep, 2^-24, carried through the rep's factors of ~1, so 6 reps
   stay within 6 x 2^-23; a bf16 output may then round one bf16 ulp (2^-8
-  below 1) apart.
+  below 1) apart. On NaN, ±inf and values outside [0, 1] both keep NaN
+  (`jnp.clip`, `torch.clamp`) in the same places, and the rest is held as
+  above.
 
 And the wrappers of the two tensor-core kernels of row 13,
 `packed_attention_variant` and `tc_matmul`, refusing what their kernels
@@ -192,6 +194,27 @@ def test_chain_matches_plain(tpu_interpret, monkeypatch, store, math):
     else:
         tol = 6 * 2.0 ** -23 if store == "fp32" else 2.0 ** -8
         assert np.abs(got.float().numpy() - want).max() <= tol
+
+
+@pytest.mark.parametrize("store,math", [("fp32", "fp32"), ("bf16", "bf16"),
+                                        ("bf16", "fp32")])
+def test_chain_keeps_nan_like_pallas(tpu_interpret, monkeypatch, store, math):
+    """NaN, ±inf, -0.5, 1.5 and values at the threshold through the TPU
+    script's chain and the plain version: NaN in the same places, the
+    other values within the stated tolerance (bit for bit in bf16 math)."""
+    mod = load_tool(monkeypatch, "bench_vpu_bf16", B=2, S=16)
+    jt = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+    tt = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    x = bench_vpu_bf16.special_values(torch.float32, n=2 * 16 * 16).view(2, 16, 16)
+    want = to_np(mod.chain(jnp.asarray(x.numpy(), jt[store]), jt[math], 6))
+    got = elementwise_chain_reference(x.to(tt[store]), 6, tt[math]).float().numpy()
+    nan = np.isnan(want)
+    assert nan.sum() == 2 and np.array_equal(np.isnan(got), nan)
+    if math == "bf16":
+        np.testing.assert_array_equal(got[~nan], want[~nan])
+    else:
+        tol = 6 * 2.0 ** -23 if store == "fp32" else 2.0 ** -8
+        assert np.abs(got[~nan] - want[~nan]).max() <= tol
 
 
 @pytest.mark.parametrize("tool", [bench_ln_matmul, bench_packed_attn,

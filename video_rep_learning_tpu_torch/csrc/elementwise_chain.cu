@@ -10,16 +10,36 @@
 //
 // The constants come from the caller already rounded to the math type, as
 // JAX's weak types round them (in bf16, 1.0001, 0.999 and 1.001 are all 1
-// and 1e-4 is 1.0014e-4). Every op rounds once, as the plain version's torch
-// ops do: __fmul_rn / __fadd_rn in fp32 (nvcc would otherwise contract
-// v * one + eps into one FMA), the packed bf16x2 intrinsics in bf16 (each an
-// fma.rn with a zero or unit operand, correctly rounded).
+// and 1e-4 is 1.0014e-4). The kernel stays generic in them: no branch on
+// their values, no multiply skipped because a constant is 1. Every op rounds
+// once, as the plain version's torch ops do: __fmul_rn / __fadd_rn in fp32
+// (nvcc would otherwise contract v * one + eps into one FMA),
+// __hmul2_rn / __hadd2_rn in bf16. The clip keeps NaN, as jnp.clip and
+// torch.clamp do: max.NaN / min.NaN (fminf / fmaxf and the .sat forms turn
+// NaN into a bound). ±inf clips to 1 or 0.
 //
-// What bounds it on the H100: operations once REPS is more than a few (8 a
-// rep: multiply, add, two clip bounds, compare, two multiplies, select; fp32
-// at 67 TFLOP/s, bf16 at the 133.8 TFLOP/s of the packed non-tensor units).
-// A thread holds 8 elements in registers for the whole chain: one 16-byte
-// load and store (two in fp32), nothing in shared memory.
+// A rep, as ptxas issues it (SASS read with tools/sass_loops.py):
+//   fp32, one value: FMUL, FADD, FMNMX.NAN x 2, FSETP, FSEL, FMUL (7). The
+//     select picks the constant before one multiply, v * (v > thr ? down :
+//     up), which equals the two-product form bit for bit: each arm is one
+//     rounded product of v.
+//   bf16, two values in one __nv_bfloat162: HMUL2, HFMA2.RELU (the add of
+//     eps and the max with 0 fused: ReLU keeps NaN), HMNMX2.NAN, HSET2 (a
+//     0xffff-a-half mask), one LOP3 picking down or up a half, and HMUL2 (or
+//     HFMA2.MMA, the same product on the MMA pipe): 6 for two values; no
+//     half is unpacked.
+//   bf16 storage with fp32 math: the fp32 rep on both halves, converted in
+//     and out once.
+// A thread holds 8 values in registers for the whole chain (one 16-byte load
+// and store in bf16, two in fp32); the reps loop runs its 8 values side by
+// side and is unrolled by 4, with the remainder after it.
+//
+// What bounds it on the H100: operations once REPS is more than a few
+// (`ops/bounds.py` counts 8 a rep at 67 TFLOP/s fp32 and 133.8 TFLOP/s for
+// the packed bf16 units). The CUDA programming guide rates compare, min and
+// max at 64 results an SM a clock against 128 for fp32 multiply and add:
+// the fp32 rep's FMNMX x 2, FSETP and FSEL issue at that half rate, which
+// sets its pace (about 16 value-reps an SM a clock).
 //
 // x and out (n,) contiguous and 16-byte aligned. No allocation; launches on
 // the caller's stream and returns cudaGetLastError().
@@ -32,31 +52,71 @@ using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
 
 constexpr int kThreads = 256;
-constexpr int kVec = 8;  // elements a thread
+constexpr int kVec = 8;     // elements a thread
+constexpr int kUnroll = 4;  // reps a trip of the unrolled loop
 
 struct Consts {
   float one, eps, thr, down, up;
 };
 
-__device__ __forceinline__ float step(float v, const Consts& c, int reps) {
-  for (int r = 0; r < reps; ++r) {
-    v = fminf(fmaxf(__fadd_rn(__fmul_rn(v, c.one), c.eps), 0.f), 1.f);
-    v = v > c.thr ? __fmul_rn(v, c.down) : __fmul_rn(v, c.up);
-  }
-  return v;
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
-__device__ __forceinline__ bf162 step2(bf162 v, const Consts& c, int reps) {
-  const bf162 one = __float2bfloat162_rn(c.one), eps = __float2bfloat162_rn(c.eps);
-  const bf162 lo = __float2bfloat162_rn(0.f), hi = __float2bfloat162_rn(1.f);
-  const bf16 thr = __float2bfloat16(c.thr), down = __float2bfloat16(c.down),
-             up = __float2bfloat16(c.up);
-  for (int r = 0; r < reps; ++r) {
-    v = __hmin2(__hmax2(__hadd2(__hmul2(v, one), eps), lo), hi);
-    v.x = __hgt(v.x, thr) ? __hmul(v.x, down) : __hmul(v.x, up);
-    v.y = __hgt(v.y, thr) ? __hmul(v.y, down) : __hmul(v.y, up);
+__device__ __forceinline__ float rep(float v, const Consts& c) {
+  v = min_nan(max_nan(__fadd_rn(__fmul_rn(v, c.one), c.eps), 0.f), 1.f);
+  return __fmul_rn(v, v > c.thr ? c.down : c.up);
+}
+
+// The constants as bf16 pairs, down and up also as raw bits for the select.
+struct Consts2 {
+  bf162 one, eps, zero, unit, thr;
+  unsigned down, up;
+};
+
+__device__ __forceinline__ unsigned bits(bf162 v) { return *reinterpret_cast<unsigned*>(&v); }
+
+__device__ __forceinline__ Consts2 pack(const Consts& c) {
+  Consts2 p;
+  p.one = __float2bfloat162_rn(c.one);
+  p.eps = __float2bfloat162_rn(c.eps);
+  p.zero = __float2bfloat162_rn(0.f);
+  p.unit = __float2bfloat162_rn(1.f);
+  p.thr = __float2bfloat162_rn(c.thr);
+  p.down = bits(__float2bfloat162_rn(c.down));
+  p.up = bits(__float2bfloat162_rn(c.up));
+  return p;
+}
+
+__device__ __forceinline__ bf162 rep(bf162 v, const Consts2& c) {
+  v = __hmin2_nan(__hmax2_nan(__hadd2_rn(__hmul2_rn(v, c.one), c.eps), c.zero), c.unit);
+  const unsigned m = __hgt2_mask(v, c.thr);  // 0xffff in each half where v > thr
+  unsigned f = (m & c.down) | (~m & c.up);
+  return __hmul2_rn(v, *reinterpret_cast<bf162*>(&f));
+}
+
+// `reps` reps over N values side by side, unrolled by kUnroll.
+template <typename V, typename C, int N>
+__device__ __forceinline__ void run(V (&v)[N], int reps, const C& c) {
+  int r = 0;
+  for (; r + kUnroll <= reps; r += kUnroll) {
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = rep(v[i], c);
+    }
   }
-  return v;
+  for (; r < reps; ++r) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = rep(v[i], c);
+  }
 }
 
 // mode 0: fp32 storage and math; 1: bf16 storage and math; 2: bf16 storage,
@@ -67,45 +127,71 @@ chain_kernel(const void* __restrict__ x, void* __restrict__ out, long long n, in
              Consts c) {
   const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kVec;
   if (i0 >= n) return;
-  if (MODE == 0) {
+  const int m = n - i0 < kVec ? (int)(n - i0) : kVec;  // values of this thread
+  if constexpr (MODE == 0) {
     const float* xs = static_cast<const float*>(x) + i0;
     float* os = static_cast<float*>(out) + i0;
-    if (i0 + kVec <= n) {
-      float4 a = reinterpret_cast<const float4*>(xs)[0];
-      float4 b = reinterpret_cast<const float4*>(xs)[1];
-      a = make_float4(step(a.x, c, reps), step(a.y, c, reps), step(a.z, c, reps),
-                      step(a.w, c, reps));
-      b = make_float4(step(b.x, c, reps), step(b.y, c, reps), step(b.z, c, reps),
-                      step(b.w, c, reps));
-      reinterpret_cast<float4*>(os)[0] = a;
-      reinterpret_cast<float4*>(os)[1] = b;
+    float v[kVec];
+    if (m == kVec) {
+      const float4 a = reinterpret_cast<const float4*>(xs)[0];
+      const float4 b = reinterpret_cast<const float4*>(xs)[1];
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
     } else {
-      for (long long i = 0; i < n - i0; ++i) os[i] = step(xs[i], c, reps);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) v[i] = i < m ? xs[i] : 0.f;
+    }
+    run(v, reps, c);
+    if (m == kVec) {
+      reinterpret_cast<float4*>(os)[0] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(os)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i)
+        if (i < m) os[i] = v[i];
     }
     return;
   }
   const bf16* xs = static_cast<const bf16*>(x) + i0;
   bf16* os = static_cast<bf16*>(out) + i0;
-  if (i0 + kVec <= n) {
+  bf162 v[kVec / 2];
+  if (m == kVec) {
     uint4 raw = *reinterpret_cast<const uint4*>(xs);
-    bf162* v = reinterpret_cast<bf162*>(&raw);
+    const bf162* p = reinterpret_cast<const bf162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < kVec / 2; ++k) v[k] = p[k];
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+#pragma unroll
+    for (int k = 0; k < kVec / 2; ++k)
+      v[k] = __halves2bfloat162(2 * k < m ? xs[2 * k] : zero,
+                                2 * k + 1 < m ? xs[2 * k + 1] : zero);
+  }
+  if constexpr (MODE == 1) {
+    run(v, reps, pack(c));
+  } else {
+    float f[kVec];
 #pragma unroll
     for (int k = 0; k < kVec / 2; ++k) {
-      if (MODE == 1) {
-        v[k] = step2(v[k], c, reps);
-      } else {
-        v[k] = __floats2bfloat162_rn(step(__low2float(v[k]), c, reps),
-                                     step(__high2float(v[k]), c, reps));
-      }
+      const float2 t = __bfloat1622float2(v[k]);
+      f[2 * k] = t.x;
+      f[2 * k + 1] = t.y;
     }
+    run(f, reps, c);
+#pragma unroll
+    for (int k = 0; k < kVec / 2; ++k) v[k] = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+  }
+  if (m == kVec) {
+    uint4 raw;
+    bf162* p = reinterpret_cast<bf162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < kVec / 2; ++k) p[k] = v[k];
     *reinterpret_cast<uint4*>(os) = raw;
   } else {
-    for (long long i = 0; i < n - i0; ++i) {
-      if (MODE == 1) {
-        os[i] = __low2bfloat16(step2(__bfloat162bfloat162(xs[i]), c, reps));
-      } else {
-        os[i] = __float2bfloat16(step(__bfloat162float(xs[i]), c, reps));
-      }
+#pragma unroll
+    for (int k = 0; k < kVec / 2; ++k) {
+      if (2 * k < m) os[2 * k] = __low2bfloat16(v[k]);
+      if (2 * k + 1 < m) os[2 * k + 1] = __high2bfloat16(v[k]);
     }
   }
 }

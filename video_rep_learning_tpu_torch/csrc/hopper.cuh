@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (ln_gemm.cu, mlp_block.cu, packed_attn.cu, packed_attn_variants.cu,
-// int8_gemm.cu): mbarriers, TMA tile loads and stores, wgmma shared memory
+// int8_gemm.cu) and photometric.cu's bulk row copies: mbarriers, TMA tile
+// loads and stores, bulk copies, wgmma shared memory
 // descriptors and the wgmma instructions the kernels issue, register
 // rebalancing between warpgroups, and the host-side encoding of a TMA
 // tensor map.
@@ -130,6 +131,18 @@ __device__ __forceinline__ void bulk_wait_read() {
 // Until the issuing thread's committed stores are complete.
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from the 16 B-aligned global `src` into the 16 B-
+// aligned shared `dst`, as they lie (no tensor map); the bytes complete a
+// transaction on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_u32(bar))
+      : "memory");
 }
 
 // Starts pulling `bytes` (a multiple of 16) at the 16 B-aligned p into L2.

@@ -1,11 +1,12 @@
 // SSL augmentation for Hopper (sm_90a): RandomResizedCrop on the uint8 canvas
 // plus the photometric tail (ColorJitter in a per-view op order, GaussianBlur,
-// grayscale, horizontal flip, ImageNet normalisation).
+// grayscale, horizontal flip, ImageNet normalisation), or the tail alone on
+// frames that are already cropped.
 //
 // Replaces the TPU kernels `_crop_photometric_kernel` (src_kind 1: uint8
 // (BV, T, 3, H, W) canvas, crop rh . x . rw inside the kernel;
 // `crop_strip_kernel` below) and `_photometric_kernel` (src_kind 0: already
-// cropped fp32 (BV, T, 3, S, S); `photometric_kernel`) of
+// cropped fp32 (BV, T, 3, S, S); `photometric_strip_kernel`) of
 // video_rep_learning_tpu/ops/photometric_pallas.py.
 //
 // The TPU kernels hold a whole (3, S, S) frame in VMEM (602 KB in fp32 at
@@ -14,28 +15,34 @@
 // the middle of a random op order), and the blur needs neighbours 4 rows and
 // 2 columns away.
 //
-// crop_strip_kernel (src_kind 1, the training path under USE_AMP). A frame
-// is one thread-block cluster of kStrips = 16 blocks (a non-portable cluster
-// size, which the H100 takes), each owning a strip of `rows` output rows (14
-// at S = 224: 16 x 480 = 7,680 blocks of 256 threads a CARL step, three an SM
-// at 62.5 KB of shared memory). A block:
-//   1. stages its source band: the canvas rows the taps of its rows read,
-//      over the crop's columns, 3 channels, by 16-byte loads (byte loads
-//      where the canvas width is no multiple of 16);
-//   2. computes crop + the jitter ops before contrast once a pixel of its
-//      strip, into shared memory in fp32;
-//   3. sums the luma of its rows, and the cluster exchanges the partial sums
+// Both kernels are one design, `strip_frame`, templated on the source. A
+// frame is one thread-block cluster of kStrips = 16 blocks (a non-portable
+// cluster size, which the H100 takes), each owning a strip of `rows` output
+// rows (14 at S = 224: 16 x 480 = 7,680 blocks of 256 threads a CARL step,
+// three an SM). A block:
+//   1. stages its strip's source once:
+//      - the uint8 canvas (#12): the canvas rows the taps of its rows read,
+//        over the crop's columns, 3 channels, by 16-byte loads (byte loads
+//        where the canvas width is no multiple of 16); then computes crop +
+//        the jitter ops before contrast once a pixel, into shared memory in
+//        fp32;
+//      - the cropped fp32 frames (#11): its rows of each channel plane, three
+//        contiguous runs of rows x S x 4 bytes, copied by `cp.async.bulk`
+//        into the fp32 buffer and completing on an mbarrier (4-byte loads
+//        where S x 4 bytes or the pointer is no multiple of 16); the jitter
+//        ops before contrast then run in place in that buffer;
+//   2. sums the luma of its rows, and the cluster exchanges the partial sums
 //      through distributed shared memory, each block adding all of them in
 //      rank order: the same deterministic mean in every block, with no
 //      second pass over the source and no second launch (skipped for a view
 //      with jitter off);
-//   4. applies contrast and the ops after it in place, then blurs separably:
+//   3. applies contrast and the ops after it in place, then blurs separably:
 //      9 taps down into a buffer that takes the dead band's place, reading
 //      the 4 halo rows each side from the neighbouring strips' shared memory
 //      (distributed shared memory, after a cluster barrier) rather than
 //      computing them again, then 5 across; grays, flips, normalises and
 //      writes 8 outputs a thread with 16-byte stores.
-// Where a strip's rows and band do not fit shared memory (S 512, canvases
+// Where a strip's rows (and band) do not fit shared memory (S 512, canvases
 // above ~1000 rows at S 224) the host plans chunks: a chunk stages its rows
 // and their halo and computes the halo again, and since its pre-contrast
 // rows cannot wait in shared memory for the mean, the strip sums the luma in
@@ -45,23 +52,20 @@
 // takes one approximate reciprocal where the TPU kernel's HSV divides five
 // times; the clamps are saturating instructions.
 //
-// What bounds it on the H100: per frame it reads 3 H W bytes and writes 3 S^2
-// outputs, and does ~200 fp32 operations an output pixel (`ops/bounds.py`):
-// 0.07 ms of bytes at the CARL step, under the instruction issue of the
-// chain (the crop's byte loads, the jitter ops, the two blur passes) and
+// What bounds them on the H100 (`ops/bounds.py`): #12 reads 3 H W bytes and
+// writes 3 S^2 outputs a frame, and does ~200 fp32 operations an output
+// pixel: 0.07 ms of bytes at the CARL step, under the instruction issue of
+// the chain (the crop's byte loads, the jitter ops, the two blur passes) and
 // the latency of each block's staging and cluster barriers, which three
-// blocks an SM only partly hide.
-//
-// photometric_kernel (src_kind 0, the fp32 step without USE_AMP) keeps the
-// first design: one block a frame, the luma mean in a first pass over the
-// frame, then tiles of 16 rows whose pre-blur values and halo are computed
-// into shared memory and blurred as a 9 x 5 stencil.
+// blocks an SM only partly hide. #11 moves 4 bytes in and 4 (or 2) out a
+// value: 0.17 ms of bytes at (2, 240, 3, 224, 224) fp32, which the bulk
+// copies let a block wait on without spending an instruction a value.
 //
 // The crop reads each resample row as two adjacent taps (index, w0, w1), the
 // exact compact form of a linear resample matrix without antialiasing; the
 // blur reads its 9 and 5 stencil taps. Both are computed by the wrapper
 // (ops/photometric.py) from the dense matrices the plain version uses; it also
-// plans the strips (`crop_plan`).
+// plans the strips (`crop_plan`, `photometric_plan`).
 //
 // Launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError().
@@ -71,13 +75,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxSize = 512;
 
-__device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.f), 1.f); }
 __device__ __forceinline__ float luma(float r, float g, float b) {
   return 0.299f * r + 0.587f * g + 0.114f * b;
 }
@@ -86,236 +91,7 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return i >= n ? 2 * (n - 1) - i : i;
 }
 
-// ===========================================================================
-// photometric_kernel: the tail on cropped fp32 frames, one block a frame
-// ===========================================================================
-
-constexpr int kThreads = 256;
-constexpr int kTileRows = 16;
-constexpr int kHaloRows = 4;  // 9-tap vertical blur
-constexpr int kHaloCols = 2;  // 5-tap horizontal blur
-
 enum { F_JITTER, F_FB, F_FC, F_FS, F_FH, F_BLUR, F_GRAY, F_FLIP };
-
-struct View {
-  float f[8];
-  int order[4];
-  float wy[9];
-  float wx[5];
-  float mean;  // luma mean before the contrast op
-};
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// torchvision adjust_hue through HSV, as the JAX kernel's `_hue`: delta == 0
-// keeps h = 0, and the sextant index 6 (h rounding to 1.0) wraps to 0.
-__device__ void hue(float& r, float& g, float& b, float f) {
-  r = clamp01(r);
-  g = clamp01(g);
-  b = clamp01(b);
-  const float maxc = fmaxf(fmaxf(r, g), b);
-  const float minc = fminf(fminf(r, g), b);
-  const float v = maxc;
-  const float delta = maxc - minc;
-  const float s = maxc > 0.f ? delta / fmaxf(maxc, 1e-12f) : 0.f;
-  const float safe = delta > 0.f ? delta : 1.f;
-  const float rc = (maxc - r) / safe, gc = (maxc - g) / safe, bc = (maxc - b) / safe;
-  float h = maxc == r ? bc - gc : (maxc == g ? 2.f + rc - bc : 4.f + gc - rc);
-  h = h / 6.f;
-  h = delta > 0.f ? h - floorf(h) : 0.f;
-  h = h + f;
-  h = h - floorf(h);
-  const float i6 = floorf(h * 6.f);
-  const float frac = h * 6.f - i6;
-  const float p = v * (1.f - s);
-  const float q = v * (1.f - frac * s);
-  const float t = v * (1.f - (1.f - frac) * s);
-  int i = (int)i6;
-  if (i >= 6) i -= 6;
-  switch (i) {
-    case 0: r = v; g = t; b = p; break;
-    case 1: r = q; g = v; b = p; break;
-    case 2: r = p; g = v; b = t; break;
-    case 3: r = p; g = q; b = v; break;
-    case 4: r = t; g = p; b = v; break;
-    default: r = v; g = p; b = q; break;
-  }
-}
-
-// Jitter ops order[from..to) on one pixel.
-__device__ void jitter(const View& vw, int from, int to, float& r, float& g, float& b) {
-  for (int i = from; i < to; ++i) {
-    switch (vw.order[i]) {
-      case 0: {
-        const float fb = vw.f[F_FB];
-        r = clamp01(r * fb); g = clamp01(g * fb); b = clamp01(b * fb);
-        break;
-      }
-      case 1: {
-        const float fc = vw.f[F_FC];
-        const float m = vw.mean * (1.f - fc);
-        r = clamp01(r * fc + m); g = clamp01(g * fc + m); b = clamp01(b * fc + m);
-        break;
-      }
-      case 2: {
-        const float fs = vw.f[F_FS];
-        const float gray = luma(r, g, b) * (1.f - fs);
-        r = clamp01(r * fs + gray); g = clamp01(g * fs + gray); b = clamp01(b * fs + gray);
-        break;
-      }
-      default:
-        hue(r, g, b, vw.f[F_FH]);
-    }
-  }
-}
-
-// The cropped source pixel at (y, x) of this frame's (3, S, S) fp32 planes.
-__device__ __forceinline__ void load_px(const float* p, int S, int y, int x, float& r,
-                                        float& g, float& b) {
-  const size_t plane = (size_t)S * S, o = (size_t)y * S + x;
-  r = p[o]; g = p[plane + o]; b = p[2 * plane + o];
-}
-
-__device__ __forceinline__ void pre_blur(const float* src, int S, const View& vw, bool jit,
-                                         int y, int x, float& r, float& g, float& b) {
-  load_px(src, S, y, x, r, g, b);
-  if (jit) jitter(vw, 0, 4, r, g, b);
-}
-
-template <typename OutT>
-__device__ __forceinline__ void finish(const View& vw, OutT* out, int S, int y, int x,
-                                       float r, float g, float b) {
-  if (vw.f[F_GRAY] > 0.f) r = g = b = luma(r, g, b);
-  const int xo = vw.f[F_FLIP] > 0.f ? S - 1 - x : x;
-  const size_t plane = (size_t)S * S, o = (size_t)y * S + xo;
-  store_out(out + o, (r - 0.485f) / 0.229f);
-  store_out(out + plane + o, (g - 0.456f) / 0.224f);
-  store_out(out + 2 * plane + o, (b - 0.406f) / 0.225f);
-}
-
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-photometric_kernel(const float* __restrict__ src, const float* __restrict__ fscal,
-                   const int* __restrict__ orders, const float* __restrict__ wy,
-                   const float* __restrict__ wx, int T, int S, OutT* __restrict__ out) {
-  extern __shared__ float tail_smem[];
-  float* tile = tail_smem;  // 3 x (kTileRows + 8) x (S + 4)
-  __shared__ float red[kThreads / 32];
-
-  const int tid = threadIdx.x;
-  const int t = blockIdx.x, bv = blockIdx.y;
-  const size_t frame_id = (size_t)bv * T + t;
-
-  View vw;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) vw.f[i] = fscal[bv * 8 + i];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) vw.order[i] = orders[bv * 4 + i];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) vw.wy[i] = wy[bv * 9 + i];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) vw.wx[i] = wx[bv * 5 + i];
-  vw.mean = 0.f;
-  const bool jit = vw.f[F_JITTER] > 0.f;
-  const bool blur = vw.f[F_BLUR] > 0.f;
-  const float* s = src + frame_id * 3 * S * S;
-
-  // 1. the luma mean the contrast op sees: the ops before contrast
-  if (jit) {
-    int pc = 0;
-    while (vw.order[pc] != 1) ++pc;
-    float acc = 0.f;
-    for (int i = tid; i < S * S; i += kThreads) {
-      float r, g, b;
-      load_px(s, S, i / S, i % S, r, g, b);
-      jitter(vw, 0, pc, r, g, b);
-      acc += luma(r, g, b);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if ((tid & 31) == 0) red[tid >> 5] = acc;
-    __syncthreads();
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) sum += red[w];
-    vw.mean = sum / (float)(S * S);
-  }
-
-  OutT* o = out + frame_id * 3 * S * S;
-  if (!blur) {  // every pixel on its own
-    for (int i = tid; i < S * S; i += kThreads) {
-      const int y = i / S, x = i % S;
-      float r, g, b;
-      pre_blur(s, S, vw, jit, y, x, r, g, b);
-      finish(vw, o, S, y, x, r, g, b);
-    }
-    return;
-  }
-
-  // 2. tiles of rows: pre-blur values with their reflected halo in shared
-  // memory, then the 9 x 5 stencil
-  const int tw = S + 2 * kHaloCols;
-  for (int y0 = 0; y0 < S; y0 += kTileRows) {
-    const int rows = min(kTileRows, S - y0);
-    const int th = rows + 2 * kHaloRows;
-    const int plane = th * tw;
-    __syncthreads();  // the previous tile's reads are done
-    for (int i = tid; i < plane; i += kThreads) {
-      const int ty = i / tw, tx = i % tw;
-      const int y = reflect(y0 - kHaloRows + ty, S);
-      const int x = reflect(tx - kHaloCols, S);
-      float r, g, b;
-      pre_blur(s, S, vw, jit, y, x, r, g, b);
-      tile[i] = r;
-      tile[plane + i] = g;
-      tile[2 * plane + i] = b;
-    }
-    __syncthreads();
-    for (int i = tid; i < rows * S; i += kThreads) {
-      const int ty = i / S, x = i % S;
-      float c3[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float* p = tile + c * plane + ty * tw + x;
-        float acc = 0.f;
-#pragma unroll
-        for (int kx = 0; kx < 5; ++kx) {
-          float col = 0.f;
-#pragma unroll
-          for (int ky = 0; ky < 9; ++ky) col += vw.wy[ky] * p[ky * tw + kx];
-          acc += vw.wx[kx] * col;
-        }
-        c3[c] = acc;
-      }
-      finish(vw, o, S, y0 + ty, x, c3[0], c3[1], c3[2]);
-    }
-  }
-}
-
-size_t tail_smem_bytes(int S) {
-  return sizeof(float) * 3 * (size_t)(kTileRows + 2 * kHaloRows) * (S + 2 * kHaloCols);
-}
-
-template <typename OutT>
-cudaError_t launch_tail(const void* src, const void* fscal, const void* orders,
-                        const void* wy, const void* wx, int BV, int T, int S, void* out,
-                        cudaStream_t stream) {
-  const size_t smem = tail_smem_bytes(S);
-  auto kernel = photometric_kernel<OutT>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(T, BV), kThreads, smem, stream>>>(
-      static_cast<const float*>(src), static_cast<const float*>(fscal),
-      static_cast<const int*>(orders), static_cast<const float*>(wy),
-      static_cast<const float*>(wx), T, S, static_cast<OutT*>(out));
-  return cudaGetLastError();
-}
-
-// ===========================================================================
-// crop_strip_kernel: crop + tail on the uint8 canvas, a cluster a frame
-// ===========================================================================
 
 namespace strip {
 
@@ -326,11 +102,12 @@ constexpr int kHalo = 4;      // rows each side of the 9-tap vertical blur
 constexpr int kVrows = 8;     // output rows the vertical blur buffers at once
 constexpr int kMaxSmem = 232448;  // the H100's dynamic shared memory a block
 
-// What the host plans per launch (ops/photometric.py::crop_plan): output
-// rows a strip, rows a chunk of it (a strip of one chunk reads its blur halo
-// from its neighbours' shared memory; a chunked one recomputes it), and the
-// capacity of the band (canvas rows, bytes a row) and of the vertical blur's
-// buffer (rows, at most kVrows).
+// What the host plans per launch (ops/photometric.py::crop_plan,
+// photometric_plan): output rows a strip, rows a chunk of it (a strip of one
+// chunk reads its blur halo from its neighbours' shared memory; a chunked
+// one recomputes it), and the capacity of the band (canvas rows, bytes a
+// row; 0 for the fp32 source) and of the vertical blur's buffer (rows, at
+// most kVrows).
 struct Plan {
   int rows, chunk, band_rows, band_cols, vrows;
 };
@@ -340,21 +117,21 @@ __host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
 // Byte offsets of the dynamic shared memory: the pre-blur frame rows P
 // (3 x pre x S fp32: the strip's rows, or a chunk's and its halo), the region
 // shared by the band (3 x band_rows x band_cols uint8) and the vertical
-// blur's output (3 x vrows x S fp32), the column taps (S x (w0, w1, index)),
-// the row taps (pre x (w0, w1, index)), and 512 B of block sums, band bounds
-// and the vertical blur's row table. ops/photometric.py::crop_smem computes
-// the same total.
+// blur's output (3 x vrows x S fp32), for the crop the column taps
+// (S x (w0, w1, index)) and the row taps (pre x (w0, w1, index)), and 512 B
+// of block sums, band bounds, the vertical blur's row table and the bulk
+// copy's mbarrier. ops/photometric.py::crop_smem computes the same total.
 struct Layout {
   int pre, region, cols, rows, misc, total;
 };
-__host__ __device__ inline Layout layout(const Plan& pl, int S) {
+__host__ __device__ inline Layout layout(const Plan& pl, int S, bool crop) {
   Layout l;
   l.pre = pl.chunk == pl.rows ? pl.rows : pl.chunk + 2 * kHalo < S ? pl.chunk + 2 * kHalo : S;
   l.region = round16(12 * l.pre * S);
   const int band = 3 * pl.band_rows * pl.band_cols, vb = 12 * pl.vrows * S;
   l.cols = l.region + round16(band > vb ? band : vb);
-  l.rows = l.cols + round16(12 * S);
-  l.misc = l.rows + round16(12 * l.pre);
+  l.rows = l.cols + (crop ? round16(12 * S) : 0);
+  l.misc = l.rows + (crop ? round16(12 * l.pre) : 0);
   l.total = l.misc + 512;
   return l;
 }
@@ -603,19 +380,23 @@ __device__ __forceinline__ float cluster_mean(float part, float* misc, int S) {
   return total / (float)(S * S);
 }
 
-enum Mode { kCropOnly, kPreContrast, kAllOps, kSumOnly };
+// kNoOps: the crop alone (or, for the fp32 source, nothing: P holds the rows)
+enum Mode { kNoOps, kPreContrast, kAllOps, kSumOnly };
 
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads, 3)
-crop_strip_kernel(const uint8_t* __restrict__ src, const int* __restrict__ h_idx,
-                  const float* __restrict__ h_w, const int* __restrict__ w_idx,
-                  const float* __restrict__ w_w, const float* __restrict__ fscal,
-                  const int* __restrict__ orders, const float* __restrict__ wy,
-                  const float* __restrict__ wx, int T, int H, int W, int S, Plan plan,
-                  int vec_in, int vec_out, OutT* __restrict__ out) {
+// One frame's strip, as a block of its cluster. kCrop: src is the uint8
+// (BV, T, 3, H, W) canvas read through the taps; else the fp32 (BV, T, 3, S,
+// S) frames (H = W = S, no taps), copied in rows by `cp.async.bulk` where
+// vec_in says that rows and pointer are 16-byte aligned.
+template <typename OutT, bool kCrop>
+__device__ __forceinline__ void strip_frame(
+    const void* __restrict__ src, const int* __restrict__ h_idx, const float* __restrict__ h_w,
+    const int* __restrict__ w_idx, const float* __restrict__ w_w,
+    const float* __restrict__ fscal, const int* __restrict__ orders,
+    const float* __restrict__ wy, const float* __restrict__ wx, int T, int H, int W, int S,
+    const Plan& plan, int vec_in, int vec_out, OutT* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char strip_smem[];
   unsigned char* smem = strip_smem;
-  const Layout lay = layout(plan, S);
+  const Layout lay = layout(plan, S, kCrop);
   float* P = reinterpret_cast<float*>(smem);  // [3][lay.pre][S]
   unsigned char* band = smem + lay.region;     // [3][band_rows][band_cols]
   float* vbuf = reinterpret_cast<float*>(smem + lay.region);  // [3][vrows][S]
@@ -627,11 +408,13 @@ crop_strip_kernel(const uint8_t* __restrict__ src, const int* __restrict__ h_idx
   float* misc = reinterpret_cast<float*>(smem + lay.misc);
   int* bounds = reinterpret_cast<int*>(misc + 32);
   const float** table = reinterpret_cast<const float**>(smem + lay.misc + 256);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + lay.misc + 384);  // the bulk copies'
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rank = (int)cg::this_cluster().block_rank();
   const int t = blockIdx.y, bv = blockIdx.z;
-  const uint8_t* frame = src + ((size_t)bv * T + t) * 3 * H * W;
+  const uint8_t* frame = static_cast<const uint8_t*>(src) + ((size_t)bv * T + t) * 3 * H * W;
+  const float* fframe = static_cast<const float*>(src) + ((size_t)bv * T + t) * 3 * S * S;
   OutT* fout = out + ((size_t)bv * T + t) * 3 * S * S;
   const ViewScalars v = load_view(fscal, orders, bv);
   // the blur's taps, visible to all after the first staging's barriers
@@ -640,14 +423,49 @@ crop_strip_kernel(const uint8_t* __restrict__ src, const int* __restrict__ h_idx
   else if (tid < 14) taps[tid] = wx[bv * 5 + tid - 9];
   const int y0 = min(S, rank * plan.rows), y1 = min(S, y0 + plan.rows);
   const int pstride = lay.pre * S;  // floats a channel of P
+  uint32_t phase = 0;               // of `bar`, flipped at each bulk staging
+  if (!kCrop && vec_in && tid == 0) {
+    vrl::sm90::mbar_init(bar, 1);
+    vrl::sm90::mbar_init_fence();
+  }
 
-  // Stages output rows [ra, rb): their row taps (1/255 folded in) and, on
-  // the first call, the column taps, in one round trip; warp 0 then finds
-  // the canvas rows they read and warp 1 the columns, and the block copies
-  // that band. A band the plan cannot hold means rh or rw is no box
-  // resample: the kernel traps rather than read past its buffer.
+  // For the fp32 source: rows [ra, rb) of the three planes into P rows
+  // [0, rb - ra), as they lie.
+  auto stage_rows = [&](int ra, int rb) {
+    const int n = rb - ra;
+    vrl::sm90::fence_proxy_async();  // this thread's writes to P before the copy's
+    __syncthreads();  // the previous chunk is done with P
+    if (n <= 0) return;
+    if (vec_in) {
+      if (tid == 0) {
+        const uint32_t bytes = 4u * n * S;
+        vrl::sm90::mbar_expect_tx(bar, 3 * bytes);
+        for (int c = 0; c < 3; ++c)
+          vrl::sm90::bulk_load(P + c * pstride, fframe + ((size_t)c * S + ra) * S, bytes, bar);
+      }
+      vrl::sm90::mbar_wait(bar, phase);
+      phase ^= 1;
+    } else {
+      const int per_c = n * S;
+      for (int i = tid; i < 3 * per_c; i += kThreads) {
+        const int c = i / per_c, j = i - c * per_c;
+        P[c * pstride + j] = __ldg(fframe + ((size_t)c * S + ra) * S + j);
+      }
+      __syncthreads();
+    }
+  };
+
+  // Stages output rows [ra, rb): for the crop, their row taps (1/255 folded
+  // in) and, on the first call, the column taps, in one round trip; warp 0
+  // then finds the canvas rows they read and warp 1 the columns, and the
+  // block copies that band. A band the plan cannot hold means rh or rw is no
+  // box resample: the kernel traps rather than read past its buffer.
   int clo = 0, ncols = 0;
   auto stage = [&](int ra, int rb) {
+    if constexpr (!kCrop) {
+      stage_rows(ra, rb);
+      return;
+    }
     const int n = rb - ra;
     const bool first = ncols == 0;
     __syncthreads();  // the previous chunk is done with the taps and the band
@@ -715,30 +533,40 @@ crop_strip_kernel(const uint8_t* __restrict__ src, const int* __restrict__ h_idx
     __syncthreads();
   };
 
-  // Crop + ops of rows [ra, rb) into P (not for kSumOnly); returns this
-  // thread's luma sum over rows [c0, c1) where the mode sums.
+  // Crop (or, for the fp32 source, the staged values) + ops of rows
+  // [ra, rb) into P (not for kSumOnly); returns this thread's luma sum over
+  // rows [c0, c1) where the mode sums.
   auto pre_pass = [&](Mode mode, int ra, int rb, int c0, int c1, float mean) {
     float part = 0.f;
     for_pixels(rb - ra, S, [&](int rl, int x) {
-      const float h0 = rw[rl].x, h1 = rw[rl].y, w0 = cw[x].x, w1 = cw[x].y;
-      const unsigned char* a0 = band + ri[rl] * plan.band_cols + ci[x];
-      float px[3];
+      float* p = P + rl * S + x;
+      float r, g, b;
+      if constexpr (kCrop) {
+        const float h0 = rw[rl].x, h1 = rw[rl].y, w0 = cw[x].x, w1 = cw[x].y;
+        const unsigned char* a0 = band + ri[rl] * plan.band_cols + ci[x];
+        float px[3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const unsigned char* a = a0 + c * plan.band_rows * plan.band_cols;
-        const unsigned char* b = a + plan.band_cols;
-        // (rh . x) first, then . rw, as the plain version's two matmuls
-        const float t0 = h0 * u8_to_f32(a[0]) + h1 * u8_to_f32(b[0]);
-        const float t1 = h0 * u8_to_f32(a[1]) + h1 * u8_to_f32(b[1]);
-        px[c] = t0 * w0 + t1 * w1;
+        for (int c = 0; c < 3; ++c) {
+          const unsigned char* a = a0 + c * plan.band_rows * plan.band_cols;
+          const unsigned char* b = a + plan.band_cols;
+          // (rh . x) first, then . rw, as the plain version's two matmuls
+          const float t0 = h0 * u8_to_f32(a[0]) + h1 * u8_to_f32(b[0]);
+          const float t1 = h0 * u8_to_f32(a[1]) + h1 * u8_to_f32(b[1]);
+          px[c] = t0 * w0 + t1 * w1;
+        }
+        r = px[0];
+        g = px[1];
+        b = px[2];
+      } else {
+        r = p[0];
+        g = p[pstride];
+        b = p[2 * pstride];
       }
-      float r = px[0], g = px[1], b = px[2];
-      if (mode != kCropOnly) run_ops(v.pre, v.npre, v, 0.f, r, g, b);
+      if (mode != kNoOps) run_ops(v.pre, v.npre, v, 0.f, r, g, b);
       const int y = ra + rl;
       if ((mode == kPreContrast || mode == kSumOnly) && y >= c0 && y < c1) part += luma(r, g, b);
       if (mode == kAllOps) run_ops(v.post, v.npost, v, mean, r, g, b);
       if (mode != kSumOnly) {
-        float* p = P + rl * S + x;
         p[0] = r;
         p[pstride] = g;
         p[2 * pstride] = b;
@@ -818,8 +646,9 @@ crop_strip_kernel(const uint8_t* __restrict__ src, const int* __restrict__ h_idx
     const int ra = recompute_halo ? max(0, c0 - kHalo) : c0;
     const int rb = c0 >= c1 ? ra : (recompute_halo ? min(S, c1 + kHalo) : c1);
     stage(ra, rb);
-    const Mode mode = !v.jit ? kCropOnly : two_sweep ? kAllOps : kPreContrast;
-    const float part = pre_pass(mode, ra, rb, c0, c1, mean);
+    const Mode mode = !v.jit ? kNoOps : two_sweep ? kAllOps : kPreContrast;
+    // the fp32 source's staged rows are final where no op runs
+    const float part = kCrop || mode != kNoOps ? pre_pass(mode, ra, rb, c0, c1, mean) : 0.f;
     __syncthreads();
     if (mode == kPreContrast) {  // the mean, then contrast and the ops after it
       mean = cluster_mean(part, misc, S);
@@ -841,25 +670,41 @@ crop_strip_kernel(const uint8_t* __restrict__ src, const int* __restrict__ h_idx
 }
 
 template <typename OutT>
-cudaError_t launch(const void* src, const void* h_idx, const void* h_w, const void* w_idx,
-                   const void* w_w, const void* fscal, const void* orders, const void* wy,
-                   const void* wx, int BV, int T, int H, int W, int S, const Plan& plan,
-                   void* out, cudaStream_t stream) {
-  const Layout l = layout(plan, S);
-  if (l.total > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = crop_strip_kernel<OutT>;
+__global__ void __launch_bounds__(kThreads, 3)
+crop_strip_kernel(const uint8_t* __restrict__ src, const int* __restrict__ h_idx,
+                  const float* __restrict__ h_w, const int* __restrict__ w_idx,
+                  const float* __restrict__ w_w, const float* __restrict__ fscal,
+                  const int* __restrict__ orders, const float* __restrict__ wy,
+                  const float* __restrict__ wx, int T, int H, int W, int S, Plan plan,
+                  int vec_in, int vec_out, OutT* __restrict__ out) {
+  strip_frame<OutT, true>(src, h_idx, h_w, w_idx, w_w, fscal, orders, wy, wx, T, H, W, S, plan,
+                          vec_in, vec_out, out);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads, 3)
+photometric_strip_kernel(const float* __restrict__ src, const float* __restrict__ fscal,
+                         const int* __restrict__ orders, const float* __restrict__ wy,
+                         const float* __restrict__ wx, int T, int S, Plan plan, int vec_in,
+                         int vec_out, OutT* __restrict__ out) {
+  strip_frame<OutT, false>(src, nullptr, nullptr, nullptr, nullptr, fscal, orders, wy, wx, T, S,
+                           S, S, plan, vec_in, vec_out, out);
+}
+
+// A grid of (kStrips, T, BV) blocks in clusters of kStrips (above the
+// portable 8, which the H100 allows).
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int smem, int T, int BV,
+                            cudaStream_t stream, Args... args) {
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.total);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  // a cluster of kStrips blocks (above the portable 8, which the H100 allows)
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  const int vec_in = W % 16 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
-  const int vec_out = S % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kStrips, T, BV);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = l.total;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -868,14 +713,33 @@ cudaError_t launch(const void* src, const void* h_idx, const void* h_w, const vo
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const uint8_t*>(src),
-                           static_cast<const int*>(h_idx), static_cast<const float*>(h_w),
-                           static_cast<const int*>(w_idx), static_cast<const float*>(w_w),
-                           static_cast<const float*>(fscal), static_cast<const int*>(orders),
-                           static_cast<const float*>(wy), static_cast<const float*>(wx), T, H,
-                           W, S, plan, vec_in, vec_out, static_cast<OutT*>(out));
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch(int src_kind, const void* src, const void* h_idx, const void* h_w,
+                   const void* w_idx, const void* w_w, const void* fscal, const void* orders,
+                   const void* wy, const void* wx, int BV, int T, int H, int W, int S,
+                   const Plan& plan, void* out, cudaStream_t stream) {
+  const Layout l = layout(plan, S, src_kind == 1);
+  if (l.total > kMaxSmem) return cudaErrorInvalidValue;
+  const uintptr_t src_addr = reinterpret_cast<uintptr_t>(src);
+  const int vec_out = S % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const float* fs = static_cast<const float*>(fscal);
+  const int* ord = static_cast<const int*>(orders);
+  const float *ty = static_cast<const float*>(wy), *tx = static_cast<const float*>(wx);
+  OutT* o = static_cast<OutT*>(out);
+  if (src_kind == 1)
+    return launch_clusters(crop_strip_kernel<OutT>, l.total, T, BV, stream,
+                           static_cast<const uint8_t*>(src), static_cast<const int*>(h_idx),
+                           static_cast<const float*>(h_w), static_cast<const int*>(w_idx),
+                           static_cast<const float*>(w_w), fs, ord, ty, tx, T, H, W, S, plan,
+                           (int)(W % 16 == 0 && src_addr % 16 == 0), vec_out, o);
+  return launch_clusters(photometric_strip_kernel<OutT>, l.total, T, BV, stream,
+                         static_cast<const float*>(src), fs, ord, ty, tx, T, S, plan,
+                         (int)(S % 4 == 0 && src_addr % 16 == 0), vec_out, o);
 }
 
 }  // namespace strip
@@ -885,10 +749,11 @@ cudaError_t launch(const void* src, const void* h_idx, const void* h_w, const vo
 extern "C" {
 
 // src_kind: 1 = uint8 (BV, T, 3, H, W) canvas cropped through the taps
-// (crop_strip_kernel, planned by rows / chunk / band_rows / band_cols /
-// vrows), 0 = fp32 (BV, T, 3, S, S) frames (photometric_kernel; taps and plan
-// unused). out_dtype: 0 fp32, 1 bf16. Returns a cudaError_t (0 = success);
-// cudaErrorInvalidValue for arguments the kernels do not take.
+// (crop_strip_kernel), 0 = fp32 (BV, T, 3, S, S) frames (H = W = S;
+// photometric_strip_kernel; taps unused, band_rows = band_cols = 0); both
+// planned by rows / chunk / band_rows / band_cols / vrows. out_dtype: 0 fp32,
+// 1 bf16. Returns a cudaError_t (0 = success); cudaErrorInvalidValue for
+// arguments the kernels do not take.
 int vrl_photometric(const void* src, const void* h_idx, const void* h_w,
                     const void* w_idx, const void* w_w, const void* fscal,
                     const void* orders, const void* wy, const void* wx, int src_kind,
@@ -896,24 +761,23 @@ int vrl_photometric(const void* src, const void* h_idx, const void* h_w,
                     void* stream, int rows, int chunk, int band_rows, int band_cols,
                     int vrows) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S < 9 || S > kMaxSize || BV < 1 || BV > 65535 || T < 1) return cudaErrorInvalidValue;
-  if (src_kind == 1) {
-    const strip::Plan plan{rows, chunk, band_rows, band_cols, vrows};
-    if (H < 2 || W < 2 || T > 65535 || rows < 1 || rows * strip::kStrips < S ||
-        chunk < 1 || chunk > rows || band_rows < 2 || band_cols < 2 || vrows < 1 ||
-        vrows > chunk || vrows > strip::kVrows)
-      return cudaErrorInvalidValue;
-    if (out_dtype == 0)
-      return strip::launch<float>(src, h_idx, h_w, w_idx, w_w, fscal, orders, wy, wx, BV, T,
-                                  H, W, S, plan, out, st);
-    if (out_dtype == 1)
-      return strip::launch<__nv_bfloat16>(src, h_idx, h_w, w_idx, w_w, fscal, orders, wy, wx,
-                                          BV, T, H, W, S, plan, out, st);
-  }
-  if (src_kind == 0 && out_dtype == 0)
-    return launch_tail<float>(src, fscal, orders, wy, wx, BV, T, S, out, st);
-  if (src_kind == 0 && out_dtype == 1)
-    return launch_tail<__nv_bfloat16>(src, fscal, orders, wy, wx, BV, T, S, out, st);
+  if ((src_kind != 0 && src_kind != 1) || S < 9 || S > kMaxSize || BV < 1 || BV > 65535 ||
+      T < 1 || T > 65535)
+    return cudaErrorInvalidValue;
+  if (rows < 1 || rows * strip::kStrips < S || chunk < 1 || chunk > rows || vrows < 1 ||
+      vrows > chunk || vrows > strip::kVrows)
+    return cudaErrorInvalidValue;
+  if (src_kind == 1 && (H < 2 || W < 2 || band_rows < 2 || band_cols < 2))
+    return cudaErrorInvalidValue;
+  if (src_kind == 0 && (H != S || W != S || band_rows != 0 || band_cols != 0))
+    return cudaErrorInvalidValue;
+  const strip::Plan plan{rows, chunk, band_rows, band_cols, vrows};
+  if (out_dtype == 0)
+    return strip::launch<float>(src_kind, src, h_idx, h_w, w_idx, w_w, fscal, orders, wy, wx,
+                                BV, T, H, W, S, plan, out, st);
+  if (out_dtype == 1)
+    return strip::launch<__nv_bfloat16>(src_kind, src, h_idx, h_w, w_idx, w_w, fscal, orders,
+                                        wy, wx, BV, T, H, W, S, plan, out, st);
   return cudaErrorInvalidValue;
 }
 

@@ -13,7 +13,22 @@ in the math type (fp32 or bf16), from an input of either type, returned in
 the input's type. The constants round to the math type first, as JAX's weak
 types round them: in bf16, 1.0001, 0.999 and 1.001 are all 1.0 and 1e-4 is
 1.0014e-4, so the bf16 chain is an add, a clip and a compare whose select
-arms are both v. No model path takes it.
+arms are both v. The kernel stays generic in the constants all the same: it
+multiplies by them and skips nothing, so the time measures the chain's ops.
+No model path takes it.
+
+NaN stays NaN, as `jnp.clip` and `torch.clamp` keep it: the kernel's clip
+takes the NaN-keeping min / max (`max.NaN` / `min.NaN`, `__hmax2_nan` /
+`__hmin2_nan`), and a NaN fails `v > thr` on both sides; ±inf clips to 1 or
+0. Every other value comes out bit for bit as the plain version gives it
+(each op rounds once on both sides).
+
+What the kernel issues a rep (its SASS, `tools/sass_loops.py`): 7
+instructions a value in fp32 (multiply, add, two NaN-keeping min / max,
+compare, select of down or up, multiply) and 6 packed instructions for two
+values in bf16 (multiply, the add fused with the max by 0, min, a compare
+to a 0xffff-a-half mask, the select as one bitwise op, multiply), which
+`OPS_PER_REP`, the bound's count of the TPU script's ops, does not follow.
 
 - A CUDA tensor launches the kernel or raises: there is no fallback.
 - A CPU tensor takes the plain version, `elementwise_chain_reference`.

@@ -20,11 +20,13 @@ per view (`fscal`, `orders`), sampled in `ops/augment.py`.
   (the elementwise chain in bf16, a trick for the TPU VPU's rate) is not
   carried over: the port computes the chain in fp32 on every path.
 
-The crop kernel runs a frame as a cluster of `CROP_STRIPS` blocks, each
-owning a strip of output rows; `crop_plan` sizes the strips, the chunks a
-strip is computed in, and the shared-memory band of canvas rows a chunk
-reads, and refuses a canvas whose band cannot fit (`fitting_plan` gives
-None there: `ops/augment.py` then takes the split route).
+Both kernels are one design: a frame is a cluster of `CROP_STRIPS` blocks,
+each owning a strip of output rows. `crop_plan` sizes the crop kernel's
+strips, the chunks a strip is computed in, and the shared-memory band of
+canvas rows a chunk reads, and refuses a canvas whose band cannot fit
+(`fitting_plan` gives None there: `ops/augment.py` then takes the split
+route). `photometric_plan` sizes the strips and chunks of the fp32 frames,
+which the kernel copies row for row (no band, no taps).
 
 The kernel takes the resample and blur matrices in compact form, computed
 here from the same dense matrices the plain version multiplies by:
@@ -213,15 +215,16 @@ def pre_rows(S, rows, chunk):
     return rows if chunk == rows else min(S, chunk + 2 * CROP_HALO)
 
 
-def crop_smem(S, pre, band_rows, band_cols, vrows):
+def crop_smem(S, pre, band_rows, band_cols, vrows, taps=True):
     """Bytes of csrc/photometric.cu's `strip::layout`: `pre` frame rows
     (fp32, 3 channels), the band (uint8) or the vertical blur's rows (fp32),
     whichever is larger, the column and row taps (two weights and an index
-    each) and 512 B of sums, bounds and the blur's row table, each part
-    16-byte aligned."""
+    each; none for the fp32 source, `taps` False) and 512 B of sums, bounds,
+    the blur's row table and the bulk copies' mbarrier, each part 16-byte
+    aligned."""
     r16 = lambda n: -(-n // 16) * 16  # noqa: E731
     return (r16(12 * pre * S) + r16(max(3 * band_rows * band_cols, 12 * vrows * S))
-            + r16(12 * S) + r16(12 * pre) + 512)
+            + (r16(12 * S) + r16(12 * pre) if taps else 0) + 512)
 
 
 def band_rows_bound(n, H, S):
@@ -233,21 +236,42 @@ def band_rows_bound(n, H, S):
     return min(H, (n - 1) * H // S + 5)
 
 
-def fitting_plan(S, H, W):
-    """The crop kernel's plan for S x S outputs from an H x W canvas: strips
-    of ceil(S / CROP_STRIPS) rows, each one chunk if its rows and band fit
-    CROP_SMEM, else the largest chunk whose rows, halo and band do; None
-    where not even a one-row chunk fits."""
+def _first_fit(S, band):
+    """Strips of ceil(S / CROP_STRIPS) rows, each one chunk if its rows (and
+    band) fit CROP_SMEM, else the largest chunk whose rows, halo (and band)
+    do; None where not even a one-row chunk fits. `band(pre)` gives the
+    band's (rows, bytes a row) for `pre` staged rows, None for the fp32
+    source."""
     rows = -(-S // CROP_STRIPS)
-    band_cols = -(-W // 16) * 16
     for chunk in range(rows, 0, -1):
         pre = pre_rows(S, rows, chunk)
-        band_rows = band_rows_bound(pre, H, S)
+        band_rows, band_cols = band(pre) if band else (0, 0)
         vrows = min(CROP_VROWS, chunk)
-        smem = crop_smem(S, pre, band_rows, band_cols, vrows)
+        smem = crop_smem(S, pre, band_rows, band_cols, vrows, taps=band is not None)
         if smem <= CROP_SMEM:
             return CropPlan(rows, chunk, band_rows, band_cols, vrows, smem)
     return None
+
+
+def fitting_plan(S, H, W):
+    """The crop kernel's plan for S x S outputs from an H x W canvas
+    (`_first_fit`, with the band of canvas rows the staged rows' taps read,
+    over the canvas width rounded up to 16 bytes); None where not even a
+    one-row chunk fits."""
+    band_cols = -(-W // 16) * 16
+    return _first_fit(S, lambda pre: (band_rows_bound(pre, H, S), band_cols))
+
+
+def photometric_plan(S):
+    """The photometric-only kernel's plan for S x S fp32 frames
+    (`_first_fit` without a band): one chunk a strip up to S 480, chunks
+    above; raises ValueError where not even a one-row chunk fits (never for
+    S <= MAX_SIZE)."""
+    plan = _first_fit(S, None)
+    if plan is None:
+        raise ValueError(f"S {S} frames do not fit the photometric kernel's shared "
+                         f"memory: even a one-row chunk exceeds {CROP_SMEM} bytes")
+    return plan
 
 
 def crop_plan(S, H, W):
@@ -281,9 +305,10 @@ def _check(videos, fscal, orders, mh, mw, S, out_dtype):
         raise TypeError(f"out_dtype must be fp32 or bf16, got {out_dtype}")
     if not 9 <= S <= MAX_SIZE:
         raise ValueError(f"output size {S} outside the kernel's 9..{MAX_SIZE}")
-    BV = videos.shape[0]
-    if BV > 65535 or videos.shape[1] > 2 ** 31 - 1:
-        raise ValueError(f"grid too large: {tuple(videos.shape)}")
+    BV, T = videos.shape[:2]
+    if BV > 65535 or T > 65535:
+        raise ValueError(f"grid too large: {tuple(videos.shape)} (at most 65535 views "
+                         "and 65535 frames a view)")
     for name, t, shape in (("fscal", fscal, (BV, 8)), ("orders", orders, (BV, 4)),
                            ("mh", mh, (BV, S, S)), ("mw", mw, (BV, S, S))):
         if tuple(t.shape) != shape or t.device != dev:
@@ -293,8 +318,7 @@ def _check(videos, fscal, orders, mh, mw, S, out_dtype):
         raise ValueError("videos must be contiguous")
 
 
-def _launch(videos, src_kind, taps, fscal, orders, mh, mw, S, out_dtype,
-            plan=(0,) * 5):
+def _launch(videos, src_kind, taps, fscal, orders, mh, mw, S, out_dtype, plan):
     BV, T = videos.shape[:2]
     H, W = videos.shape[3], videos.shape[4]
     wy, wx = blur_taps(mh, mw)
@@ -336,8 +360,6 @@ def crop_photometric(videos, rh, rw, fscal, orders, mh, mw,
     if videos.dtype != torch.uint8 or C != 3 or H < 2 or W < 2:
         raise ValueError(f"the kernel takes (BV, T, 3, H >= 2, W >= 2) uint8, "
                          f"got {tuple(videos.shape)} {videos.dtype}")
-    if T > 65535:
-        raise ValueError(f"grid too large: {T} frames a view (at most 65535)")
     if (tuple(rh.shape) != (BV, S, H) or tuple(rw.shape) != (BV, W, S)
             or rh.device != videos.device or rw.device != videos.device):
         raise ValueError(f"rh must be {(BV, S, H)} and rw {(BV, W, S)} on "
@@ -355,20 +377,21 @@ crop_photometric.launches = 0
 
 def photometric(videos, fscal, orders, mh, mw, out_dtype=torch.float32):
     """The photometric tail on cropped fp32 frames, see
-    `photometric_reference`. CUDA tensors go through the kernel, CPU tensors
-    through the plain version. `photometric.launches` counts kernel
-    launches."""
-    if videos.device.type == "cpu":
+    `photometric_reference`. CUDA tensors go through the kernel (the crop
+    kernel's strip design on the fp32 rows, planned by `photometric_plan`),
+    CPU tensors through the plain version; a CUDA input that requires grad
+    with grad mode on raises, as the kernel records no gradient.
+    `photometric.launches` counts kernel launches."""
+    if not use_kernel("photometric", videos, fscal, mh, mw):
         return photometric_reference(videos, fscal, orders, mh, mw, out_dtype)
-    if videos.device.type != "cuda":
-        raise ValueError(f"photometric runs on cuda or cpu, not {videos.device}")
     S = videos.shape[-1]
     if (videos.dtype != torch.float32 or videos.dim() != 5
             or videos.shape[2] != 3 or videos.shape[3] != S):
         raise ValueError(f"the kernel takes (BV, T, 3, S, S) fp32, got "
                          f"{tuple(videos.shape)} {videos.dtype}")
     _check(videos, fscal, orders, mh, mw, S, out_dtype)
-    out = _launch(videos, 0, (None,) * 4, fscal, orders, mh, mw, S, out_dtype)
+    out = _launch(videos, 0, (None,) * 4, fscal, orders, mh, mw, S, out_dtype,
+                  photometric_plan(S))
     photometric.launches += 1
     return out
 

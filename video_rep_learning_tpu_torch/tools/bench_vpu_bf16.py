@@ -16,8 +16,11 @@ so the rate is the slope between REPS 6 and 480, timed in turns (6, 480,
 bf16 the constants 1.0001, 0.999 and 1.001 round to 1.0, so a bf16 rep is
 an add, a clip and a compare whose select arms are both v. Each mode's kernel is held
 against its plain version at REPS 48 bit for bit (every op rounds once on
-both sides). The TPU script's chained `fori_loop` is not carried over: CUDA
-events time the launches themselves, and the slope stays the measurement.
+both sides), and on `special_values` (NaN, ±inf, values outside [0, 1] and
+at the threshold, a count that is no multiple of 8) at REPS 0, 1, 2, 5 and
+48: NaN where the plain version has NaN, bit for bit elsewhere. The TPU
+script's chained `fori_loop` is not carried over: CUDA events time the
+launches themselves, and the slope stays the measurement.
 
     python -m video_rep_learning_tpu_torch.tools.bench_vpu_bf16 [--device cpu]
 """
@@ -39,6 +42,27 @@ CPU_SHAPES = dict(B=2, S=16)
 MODES = {"fp32 in, fp32 math": (torch.float32, torch.float32),
          "bf16 in, bf16 math": (torch.bfloat16, torch.bfloat16),
          "bf16 in, fp32 math": (torch.bfloat16, torch.float32)}
+SPECIAL_REPS = (0, 1, 2, 5, 48)
+
+
+def special_values(dtype, device="cpu", n=1003):
+    """n values of `dtype` (n no multiple of 8): NaN, ±inf, -0.5, 1.5, -0.0,
+    the threshold 0.5 and its neighbours, 0 and 1, then uniform draws on
+    [-0.25, 1.25)."""
+    head = [float("nan"), float("inf"), -float("inf"), -0.5, 1.5, -0.0, 0.5,
+            float(np.nextafter(np.float32(0.5), 1)), float(np.nextafter(np.float32(0.5), 0)),
+            0.0, 1.0, float("nan")]
+    rest = np.random.RandomState(1).rand(n - len(head)).astype(np.float32) * 1.5 - 0.25
+    x = torch.from_numpy(np.concatenate([np.float32(head), rest]))
+    return x.to(device, dtype)
+
+
+def same_or_both_nan(got, want):
+    """NaN exactly where `want` has NaN, and the same bits everywhere else."""
+    nan = torch.isnan(want)
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[want.dtype]
+    return bool(got.dtype == want.dtype and torch.equal(torch.isnan(got), nan)
+                and torch.equal(got[~nan].view(bits), want[~nan].view(bits)))
 
 
 def run(device="cuda", B=B, S=S, reps=20):
@@ -56,6 +80,12 @@ def run(device="cuda", B=B, S=S, reps=20):
         r = common.row(name, dev, kern[REPS_HI](), plain[REPS_HI](), 0.0, work,
                        what=f"({B}, {S}, {S}), REPS {REPS_HI}", kernel=kern[REPS_HI],
                        plain=plain[REPS_HI], reps=reps, rate_unit="T ops/s")
+        xs = special_values(store, dev)
+        r["special_ok"] = all(
+            same_or_both_nan(elementwise_chain(xs, n_reps, math),
+                             elementwise_chain_reference(xs, n_reps, math))
+            for n_reps in SPECIAL_REPS)
+        r["ok"] = r["ok"] and r["special_ok"]
         # the slopes: the chain's own cost, the launch and the memory traffic
         # cancelling out
         r["slope_bound_ms"] = bounds.bound(
