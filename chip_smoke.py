@@ -97,7 +97,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    outside [0, 1]: NaN where the plain version has NaN, bit for bit
    elsewhere); every row held against its plain version (tolerances above
    `TOOLS`), timed beside its plain version, library call and bound. None of their four kernels launches on the model
-   paths of phases 4-13.
+   paths of phases 4-13 and 15;
+15. the supervised paths at full width over the synthetic set (`SUP_CFGS`):
+   tcc_transformer_config (TCC regression_mse_var, l2 similarity, 2 clips x
+   240 frames, the supervised augmentation, USE_AMP) through the training
+   CLI for an epoch, then `--continue_train` for a second, each with its val
+   epoch and evaluation, #1 and #3 launched exactly once an encoder layer a
+   step, val batch and eval chunk (#3 a step), warm ms per step and clips/s,
+   a profiled step; tcc_config (the conv embedder, train_all: 2 x 40 steps
+   x 2 contexts through conv1-layer3 with grad) one warm step with its peak
+   memory, then the evaluation CLI's NUM_CONTEXTS 2 sweep and the default
+   four tasks, its warm frames/s, no attention launched; one warm step of
+   tcn_config and of scl_config (#12 launches), one of
+   classification_transformer_config and its val epoch (masked accuracy in
+   [0, 1]); then one fp32 TCC step of tcc_transformer_config, 96 frames a
+   clip with every supervised jitter on, card vs CPU (loss and head
+   gradients on STEP_TOL, layer4 in fp64, as phase 6).
 Phase 3 also holds #7 (matmul + GELU) and #9 (the LN-MLP half-block)
 against their plain versions, times #9 at 480 frames too, and checks the
 six ViT kernels' gradients (the kernel forward, the plain backward chunked
@@ -1079,6 +1094,8 @@ class EmbeddingCheck:
 
     def __init__(self, cfg):
         self.downstream_task = True
+        # TCC's configs leave the embeddings unnormalised (MODEL.L2_NORMALIZE)
+        self.unit_norm = bool(cfg.MODEL.L2_NORMALIZE)
 
     def evaluate(self, dataset, cur_epoch, summary_writer):
         for split in ("train_dataset", "val_dataset"):
@@ -1091,7 +1108,7 @@ class EmbeddingCheck:
             if embs.shape[1] != 128 or not np.isfinite(embs).all():
                 raise AssertionError(f"{split}: bad embeddings {embs.shape}")
             norm_err = float(np.abs(np.linalg.norm(embs, axis=1) - 1).max())
-            if norm_err > 1e-4:
+            if self.unit_norm and norm_err > 1e-4:
                 raise AssertionError(f"{split}: |norm - 1| up to {norm_err}")
             EmbeddingCheck.seen.append((split, frames, norm_err))
         return 1.0
@@ -1430,17 +1447,19 @@ def fp32_step_card_and_cpu(cfg_file, data_root, frames, seed, hook=None, opts=()
     view: the same initial weights, the loader's masks, lengths and steps
     with frames that differ in colour and contrast in place of the synthetic
     set's (mostly a flat background), and the same augmentation values
-    sampled once on the host with jitter and blur on (the whole chain runs).
-    `hook(model)` may register hooks and returns a remover; `opts` are more
-    config options. Returns
-    (cfg, B, V, {device: (augmented frames, loss, head gradients)})."""
+    sampled once on the host with jitter and blur on (the whole chain runs;
+    a supervised config runs the jitters its AUGMENTATION turns on), through
+    the config's algorithm. `hook(model)` may register hooks and returns a
+    remover; `opts` are more config options. Returns
+    (cfg, B, V, {device: (augmented frames, loss, head gradients)}), V 1
+    for a supervised config."""
     from video_rep_learning_tpu_torch import evaluate as cli
-    from video_rep_learning_tpu_torch.algos import SCL
+    from video_rep_learning_tpu_torch.algos import get_algo
     from video_rep_learning_tpu_torch.data import construct_dataloader
     from video_rep_learning_tpu_torch.models import build_model, set_trainable
-    from video_rep_learning_tpu_torch.ops.augment import (AugmentParams,
-                                                          sample_ssl_batch,
-                                                          ssl_batch_augment)
+    from video_rep_learning_tpu_torch.ops.augment import (
+        AugmentParams, SupervisedParams, sample_ssl_batch, sample_supervised_batch,
+        ssl_batch_augment, supervised_batch_augment)
 
     cfg = cli.load_config(cli.parse_cli(
         ["--cfg_file", cfg_file, "--opts", "USE_AMP", "False", "TRAIN.NUM_FRAMES",
@@ -1449,12 +1468,19 @@ def fp32_step_card_and_cpu(cfg_file, data_root, frames, seed, hook=None, opts=()
     cfg.PATH_TO_DATASET = os.path.join(data_root, "pouring")
     loader, _ = construct_dataloader(cfg, "train")
     batch = next(iter(loader))
-    B, V, _, H, W, _ = batch["videos"].shape
     videos = differing_frames(tuple(batch["videos"].shape), seed)
-    aug = AugmentParams(image_size=cfg.IMAGE_SIZE)
-    sampled = sample_ssl_batch(torch.Generator().manual_seed(SEED), B, V, H, W,
-                               batch["dims"], aug)
-    sampled["fscal"][:, [0, 5]] = 1
+    gen = torch.Generator().manual_seed(SEED)
+    if cfg.SSL:
+        B, V, _, H, W, _ = batch["videos"].shape
+        aug = AugmentParams(image_size=cfg.IMAGE_SIZE)
+        sampled = sample_ssl_batch(gen, B, V, H, W, batch["dims"], aug)
+        sampled["fscal"][:, [0, 5]] = 1
+        augment = ssl_batch_augment
+    else:
+        (B, _, H, W, _), V = batch["videos"].shape, 1
+        aug = SupervisedParams.from_cfg(cfg)
+        sampled = sample_supervised_batch(gen, B, H, W, batch["dims"], aug)
+        augment = supervised_batch_augment
     out = {}
     for dev in ("cuda", "cpu"):
         torch.manual_seed(SEED)
@@ -1465,8 +1491,8 @@ def fp32_step_card_and_cpu(cfg_file, data_root, frames, seed, hook=None, opts=()
         tb = {"videos": torch.as_tensor(videos).to(dev)}
         for k in ("video_masks", "seq_lens", "chosen_steps"):
             tb[k] = torch.as_tensor(batch[k]).to(dev)
-        tb["videos"] = ssl_batch_augment(tb["videos"], sampled, aug)
-        loss = SCL(cfg).compute_loss(model, tb)["loss"]
+        tb["videos"] = augment(tb["videos"], sampled, aug)
+        loss = get_algo(cfg).compute_loss(model, tb)["loss"]
         loss.backward()
         if remove:
             remove()
@@ -1520,36 +1546,51 @@ def phase_step_card_vs_cpu(data_root):
     crop is the plain matmul and the photometric-only kernel runs. Then
     layer4 alone in fp64 on both devices, from the CPU step's layer3
     features and upstream gradient."""
-    from video_rep_learning_tpu_torch.models import build_model
-
     cap = {}
-
-    def capture(model):  # layer4's input and upstream gradient
-        def hook(mod, inp, feats):
-            cap["x"] = inp[0].detach()
-            feats.register_hook(lambda g: cap.__setitem__("g", g.detach()))
-        return model.res_finetune.register_forward_hook(hook).remove
-
     _reset_launches()
-    cfg, B, V, out = fp32_step_card_and_cpu(CFG_FILE, data_root, 16, SEED, capture)
+    cfg, B, V, out = fp32_step_card_and_cpu(CFG_FILE, data_root, 16, SEED,
+                                            capture_layer4(cap))
     launches = _read_launches()
     ok, groups = check_step(f"one fp32 training step ({B} clip x {V} views x 16 "
                             f"frames that differ, full width)", out, GRAD_GROUPS,
                             held_elsewhere=("layer4",))
     log(f"  photometric launches {launches['photometric']}")
     ok &= launches["photometric"] > 0
-    # layer4 in fp64 on both devices, from the CPU step's input and upstream
-    # gradient (the same initial weights)
+    ok &= layer4_card_vs_cpu(cfg, cap, out, groups["layer4"])
+    log(f"card vs CPU training step {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's fp32 training step disagrees with the CPU's")
+    return launches
+
+
+def capture_layer4(cap):
+    """A `hook` for `fp32_step_card_and_cpu`: keeps layer4's input and
+    upstream gradient of the step in `cap`."""
+    def install(model):
+        def hook(mod, inp, feats):
+            cap["x"] = inp[0].detach()
+            feats.register_hook(lambda g: cap.__setitem__("g", g.detach()))
+        return model.res_finetune.register_forward_hook(hook).remove
+    return install
+
+
+def layer4_card_vs_cpu(cfg, cap, out, names):
+    """layer4 alone in fp64 on both devices, from the CPU step's layer3
+    features and upstream gradient (`capture_layer4`) and the same initial
+    weights: card vs CPU on STEP_TOL's layer4_fp64 rule; logs the fp32
+    steps' layer4 gradients against these fp64 ones. Returns ok."""
+    from video_rep_learning_tpu_torch.models import build_model
+
     g64 = {}
     for dev in ("cuda", "cpu"):
         torch.manual_seed(SEED)
         layer4 = build_model(cfg, dev).res_finetune.double().train()
         layer4(cap["x"].to(dev, torch.float64)).backward(cap["g"].to(dev, torch.float64))
         g64[dev] = {"res_finetune." + n: p.grad.cpu() for n, p in layer4.named_parameters()}
-    layer4 = groups["layer4"]
+    layer4 = names
     floor = _floor(g64["cpu"].values())
     e64, w64 = max((_rel(g64["cuda"][n], g64["cpu"][n], floor), n) for n in layer4)
-    ok &= e64 <= STEP_TOL["layer4_fp64"] and set(g64["cpu"]) == set(layer4)
+    ok = e64 <= STEP_TOL["layer4_fp64"] and set(g64["cpu"]) == set(layer4)
     own = {dev: max(_rel(out[d][2][n], g64["cpu"][n], floor) for n in layer4)
            for dev, d in (("card", "cuda"), ("CPU", "cpu"))}
     log(f"  layer4 in fp64 on the CPU step's input and upstream gradient: "
@@ -1557,10 +1598,7 @@ def phase_step_card_vs_cpu(data_root):
         f"{STEP_TOL['layer4_fp64']:.0e}); fp32 layer4 gradients against "
         f"these fp64 ones: the CPU's {own['CPU']:.2e}, the card's "
         f"{own['card']:.2e}")
-    log(f"card vs CPU training step {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("the card's fp32 training step disagrees with the CPU's")
-    return launches
+    return ok
 
 
 VIT_KERNELS = ("layernorm", "ln_gemm", "packed_attn", "vit_attention_block")
@@ -2336,6 +2374,242 @@ def phase_tools(card):
     return entries, launches
 
 
+# Phase 15: the supervised paths (TCC, TCN, classification; the conv
+# embedder and the NUM_CONTEXTS 2 eval sweep) at full width over the
+# synthetic set, through the trainer and the evaluation CLI
+SUP_CFGS = {name: os.path.join(REPO, "configs", f"{name}.yml")
+            for name in ("tcc_transformer_config", "tcc_config", "tcn_config",
+                         "classification_transformer_config", "scl_config")}
+TCC_STEP_FRAMES = 96  # a clip, for the card vs CPU fp32 TCC step
+# TCC pairs a batch's clips: a val batch of one raises in both packages, and
+# the shipped TCC configs leave EVAL.BATCH_SIZE at 1
+TCC_OPTS = ("EVAL.BATCH_SIZE", "2")
+
+
+def sup_cfg(name, data_root, logdir, opts=()):
+    """The config as `python -m video_rep_learning_tpu_torch.train` loads it,
+    over the synthetic set."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+
+    cfg = cli.load_config(cli.parse_cli(
+        ["--cfg_file", SUP_CFGS[name], "--logdir", logdir, "--opts",
+         *smoke_opts(["RNG_SEED", str(SEED), *opts])])[0])
+    cfg.PATH_TO_DATASET = os.path.join(data_root, cfg.PATH_TO_DATASET)
+    return cfg
+
+
+def step_with_peak(trainer, batch, it):
+    """(ms, peak GiB above what was held, loss) of one warm step."""
+    dev = trainer.device_batch(batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    loss = float(trainer.train_step(batch, dev, 9, it, 1e-4))
+    torch.cuda.synchronize()
+    return ((time.time() - t0) * 1e3,
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 30, loss)
+
+
+def eval_chunks(cfg, lens):
+    """Chunks the eval sweep runs over videos of these lengths."""
+    fpb = cfg.EVAL.FRAMES_PER_BATCH
+    return sum(-(-n // fpb) for n in lens)
+
+
+def tcc_transformer_path(data_root, card, lens):
+    """tcc_transformer_config through `python -m ...train`'s function: one
+    epoch and a checkpoint, then `--continue_train` for a second, each with
+    its val epoch and evaluation; #1 and #3 must launch exactly once an
+    encoder layer for each step, val batch and eval chunk (#3 for each
+    step). Then warm steps (exact launches again) and a profiled step.
+    Returns its launches."""
+    from video_rep_learning_tpu_torch.train.cli import main as train_main
+
+    logdir = os.path.join(WORK, "tcc_transformer_logs")
+
+    def argv(epochs, *flags):
+        return ["--workdir", data_root, "--logdir", logdir, "--cfg_file",
+                SUP_CFGS["tcc_transformer_config"], "--device", "cuda", *flags,
+                "--opts", *smoke_opts(["TRAIN.MAX_EPOCHS", str(epochs),
+                                       "LOGGING.REPORT_INTERVAL", "3", "RNG_SEED",
+                                       str(SEED), *TCC_OPTS])]
+
+    _reset_launches()
+    EmbeddingCheck.seen.clear()
+    t0 = time.time()
+    first = train_main(argv(1))
+    trainer = train_main(argv(2, "--continue_train", "--tempcfg"))
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    cfg = trainer.cfg
+    layers = cfg.MODEL.EMBEDDER_MODEL.NUM_LAYERS
+    steps = len(first.train_loader) + len(trainer.train_loader)
+    per_run = len(trainer.val_loader) + eval_chunks(cfg, lens)
+    want = {"flash_attn_fwd": layers * (steps + 2 * per_run),
+            "flash_attn_bwd": layers * steps}
+    got = {k: launches[k] for k in want}
+    log(f"tcc_transformer_config (TCC {cfg.TCC.LOSS_TYPE}, {cfg.TCC.SIMILARITY_TYPE} "
+        f"similarity; {cfg.TRAIN.BATCH_SIZE} clips x {cfg.TRAIN.NUM_FRAMES} frames a "
+        f"step, supervised augmentation): two CLI runs (epoch 0, then epoch 1 "
+        f"resumed at {trainer.start_epoch}) in {time.time() - t0:.2f} s; launches "
+        f"{json.dumps(got)} (expected {json.dumps(want)}: {layers} encoder layers x "
+        f"{steps} steps, 2 x {len(trainer.val_loader)} val batches, 2 x "
+        f"{eval_chunks(cfg, lens)} eval chunks)")
+    if trainer.start_epoch != 1 or got != want:
+        raise AssertionError("tcc_transformer_config's runs did not resume or "
+                             "launched #1 / #3 the wrong number of times")
+    if len(EmbeddingCheck.seen) != 4:
+        raise AssertionError("the embedding check did not run after each run")
+    _reset_launches()
+    batch, step_ms, losses = warm_steps(trainer, 5)
+    warm = _read_launches()
+    clips = batch["videos"].shape[0]
+    log(f"tcc_transformer train step (warm, USE_AMP bf16 backbone, {clips} clips x "
+        f"{cfg.TRAIN.NUM_FRAMES} frames of 256x256 uint8 -> 224 px, H2D + supervised "
+        f"augment + forward + TCC + backward + Adam): {step_ms:.1f} ms/step, "
+        f"{clips / step_ms * 1e3:.2f} clips/s on {card}; losses {losses}; "
+        f"#1 {warm['flash_attn_fwd']}, #3 {warm['flash_attn_bwd']} launches in 6 steps")
+    if warm["flash_attn_fwd"] != 6 * layers or warm["flash_attn_bwd"] != 6 * layers:
+        raise AssertionError("the warm TCC steps launched #1 / #3 the wrong number "
+                             "of times")
+    _add(launches, warm)
+    profile_train_step(trainer, batch, "TCC transformer", "tcc_train_step_trace.json",
+                       {"flash_fwd": "flash_attn_fwd", "flash_bwd": "flash_attn_bwd"})
+    return launches
+
+
+def tcc_conv_path(data_root, card):
+    """tcc_config: the conv embedder over conv1-layer3 trained with the rest
+    (train_all), one warm step with its peak memory; then the
+    evaluation CLI from its checkpoint (NUM_CONTEXTS 2, the default four
+    tasks) and the warm sweep's frames/s. No attention kernel launches.
+    Returns its launches."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.evaluation import get_embeddings_dataset
+    from video_rep_learning_tpu_torch.models import (build_model, load_checkpoint,
+                                                     save_checkpoint)
+    from video_rep_learning_tpu_torch.train import Trainer
+
+    logdir = os.path.join(WORK, "tcc_conv_logs")
+    _reset_launches()
+    cfg = sup_cfg("tcc_config", data_root, logdir, TCC_OPTS)
+    torch.manual_seed(SEED)
+    trainer = Trainer(cfg, no_eval=True, device="cuda")
+    batch = next(iter(trainer.train_loader))
+    step_with_peak(trainer, batch, 0)
+    ms, peak, loss = step_with_peak(trainer, batch, 1)
+    B, n = batch["videos"].shape[:2]
+    log(f"tcc_config train step (warm, conv embedder, train_all: {B} clips x "
+        f"{cfg.TRAIN.NUM_FRAMES} steps x {cfg.DATA.NUM_CONTEXTS} contexts = {B * n} "
+        f"frames through conv1-layer3 with grad under bf16 autocast, two Conv3d of "
+        f"{cfg.MODEL.EMBEDDER_MODEL.CONV_LAYERS[0][0] * cfg.MODEL.EMBEDDER_MODEL.CAPACITY_SCALAR}"
+        f" channels): {ms:.1f} ms, {B / ms * 1e3:.2f} clips/s, peak device memory "
+        f"{peak:.2f} GiB above the {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"held, on {card}; loss {loss:.6f}")
+    if not np.isfinite(loss):
+        raise AssertionError("tcc_config's step gave a non-finite loss")
+    save_checkpoint(trainer.model, logdir, 0)
+    del trainer
+    torch.cuda.empty_cache()
+    EmbeddingCheck.seen.clear()
+    metrics = cli.main(["--workdir", data_root, "--logdir", logdir, "--cfg_file",
+                        SUP_CFGS["tcc_config"], "--device", "cuda", "--opts",
+                        *smoke_opts(tasks=DEFAULT_TASKS)])
+    log(f"tcc_config eval (NUM_CONTEXTS {cfg.DATA.NUM_CONTEXTS}, CONTEXT_STRIDE "
+        f"{cfg.DATA.CONTEXT_STRIDE}): metrics {json.dumps(metrics)}; embeddings "
+        f"{EmbeddingCheck.seen}")
+    if (len(EmbeddingCheck.seen) != 2 or not set(DEFAULT_TASKS) <= set(metrics)
+            or not all(np.isfinite(v) for m in metrics.values() for v in m.values())):
+        raise AssertionError("tcc_config's evaluation failed")
+    model = build_model(cfg, "cuda")
+    load_checkpoint(model, logdir)
+    loader = cli.build_eval_loaders(cfg, "val")[0]
+    get_embeddings_dataset(cfg, model, loader, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = get_embeddings_dataset(cfg, model, loader, "cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    frames = sum(out["seq_lens"])
+    log(f"tcc_config embedding sweep (val, warm, NUM_CONTEXTS 2: {2 * frames} "
+        f"frames of 256x256 uint8 -> 224 px for {frames} embeddings): "
+        f"{frames / dt:.1f} embedded frames/s in {dt:.3f} s on {card}")
+    launches = _read_launches()
+    if launches["flash_attn_fwd"] or launches["flash_attn_bwd"]:
+        raise AssertionError("the conv embedder's path launched attention")
+    return launches
+
+
+def one_step_path(name, data_root, card, opts=(), val=False):
+    """One warm step of `name`'s trainer (and with `val` its val epoch);
+    returns (launches, val loss or None)."""
+    from video_rep_learning_tpu_torch.train import Trainer
+
+    _reset_launches()
+    cfg = sup_cfg(name, data_root, os.path.join(WORK, name + "_logs"), opts)
+    torch.manual_seed(SEED)
+    trainer = Trainer(cfg, no_eval=not val, device="cuda")
+    batch, step_ms, losses = warm_steps(trainer, 1)
+    B = batch["videos"].shape[0]
+    log(f"{name} train step (warm, {cfg.TRAINING_ALGO}, "
+        f"{cfg.MODEL.EMBEDDER_TYPE} embedder, {tuple(batch['videos'].shape)} uint8 "
+        f"-> 224 px): {step_ms:.1f} ms/step, {B / step_ms * 1e3:.2f} clips/s on "
+        f"{card}; losses {losses}")
+    acc = trainer.val_one_epoch(0)["loss"] if val else None
+    launches = _read_launches()
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, acc
+
+
+def phase_supervised(data_root, card, lens):
+    """15: the supervised paths at full width (see the module docstring);
+    returns each path's launches."""
+    paths = {"tcc_transformer": tcc_transformer_path(data_root, card, lens)}
+    torch.cuda.empty_cache()
+    paths["tcc_config"] = tcc_conv_path(data_root, card)
+    torch.cuda.empty_cache()
+    paths["tcn_config"], _ = one_step_path("tcn_config", data_root, card)
+    cls, acc = one_step_path("classification_transformer_config", data_root, card,
+                             val=True)
+    log(f"classification_transformer_config val epoch: masked accuracy {acc:.4f}; "
+        f"#1 {cls['flash_attn_fwd']}, #3 {cls['flash_attn_bwd']} launches")
+    if not 0.0 <= acc <= 1.0 or not cls["flash_attn_fwd"] or not cls["flash_attn_bwd"]:
+        raise AssertionError("classification's step or val epoch failed")
+    paths["classification"] = cls
+    paths["scl_config"], _ = one_step_path("scl_config", data_root, card)
+    log(f"scl_config (SCL over the conv embedder): crop_photometric "
+        f"{paths['scl_config']['crop_photometric']} launches")
+    if paths["scl_config"]["crop_photometric"] <= 0:
+        raise AssertionError("scl_config's steps never launched crop_photometric")
+    if any(p["flash_attn_fwd"] for k, p in paths.items()
+           if k in ("tcn_config", "scl_config")):
+        raise AssertionError("a conv embedder's path launched attention")
+
+    # one fp32 TCC step, card vs CPU, the whole supervised chain on
+    cap = {}
+    _reset_launches()
+    cfg, B, _, out = fp32_step_card_and_cpu(
+        SUP_CFGS["tcc_transformer_config"], data_root, TCC_STEP_FRAMES, SEED + 3,
+        capture_layer4(cap), opts=("AUGMENTATION.HUE", "True",
+                                   "AUGMENTATION.SATURATION", "True"))
+    step = _read_launches()
+    ok, groups = check_step(
+        f"one fp32 TCC training step (tcc_transformer_config, {B} clips x "
+        f"{TCC_STEP_FRAMES} frames that differ, every supervised jitter on)", out,
+        GRAD_GROUPS, held_elsewhere=("layer4",))
+    ok &= layer4_card_vs_cpu(cfg, cap, out, groups["layer4"])
+    layers = cfg.MODEL.EMBEDDER_MODEL.NUM_LAYERS
+    ok &= step["flash_attn_fwd"] == layers and step["flash_attn_bwd"] == layers
+    log(f"card vs CPU TCC step: #1 {step['flash_attn_fwd']}, #3 "
+        f"{step['flash_attn_bwd']} launches {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's fp32 TCC step disagrees with the CPU's")
+    paths["fp32 TCC step"] = step
+    return paths
+
+
 JAX_OPS = "video_rep_learning_tpu/ops/"
 SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
     "flash_attn_fwd": ("csrc/flash_attn_fwd.cu", JAX_OPS + "attention_pallas.py:79"),
@@ -2411,6 +2685,14 @@ def main():
     tool_entries, tool_launches = phase_tools(card)
     entries["ln_gemm"].update(tool_entries.pop("ln_gemm_tools"))
     entries.update(tool_entries)
+    torch.cuda.empty_cache()
+    sup_launches = phase_supervised(data_root, card, lens)
+    strays = {(path, k): n for path, counts in sup_launches.items()
+              for k, n in counts.items() if k in TOOL_ENTRIES and n}
+    if strays:
+        raise AssertionError(f"a supervised path launched a micro-benchmark kernel: "
+                             f"{strays}")
+    log("supervised paths: none of " + ", ".join(TOOL_ENTRIES) + " launched")
     # the kernels as built (PTXAS_KERNELS): registers, stack, spills; 13g's SASS
     for name, built in ptxas.items():
         entries[name]["ptxas"] = built
@@ -2444,6 +2726,7 @@ def main():
             "mvf_eval_launches": mvf_launches[name],
             "mvf_train_launches": mvf_train_launches[name],
             "partial_train_launches": partial_launches.get(name, 0),
+            "supervised_launches": {p: c[name] for p, c in sup_launches.items()},
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],

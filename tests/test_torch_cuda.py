@@ -948,3 +948,57 @@ def test_micro_benchmark_kernels_reject_bad_input(cuda):
         matmul.ln_matmul_bias_act(
             x, None, None, torch.zeros(128, 1568, device=cuda, dtype=torch.bfloat16),
             torch.zeros(128, device=cuda))
+
+
+def test_tcc_transformer_step_matches_cpu(cuda):
+    """One fp32 TCC training step of a small transformer CARL model (2 clips
+    x 12 frames at 32 px, a 2-layer encoder of 2 heads x 32) on the card
+    launches the flash forward (#1) and backward (#3) once an encoder layer,
+    and gives the CPU's loss and gradients (TF32 off): the loss to 1e-5, each
+    gradient tensor to 2e-3 of its largest value, at least 1% of the step's
+    largest (`chip_smoke.py`'s STEP_TOL rule: the same fp32 math summed in
+    another order; layer4 is left out, as there)."""
+    from video_rep_learning_tpu_torch.algos import TCC
+    from video_rep_learning_tpu_torch.config import get_cfg
+    from video_rep_learning_tpu_torch.models import build_model, set_trainable
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_cfg()
+    cfg.SSL, cfg.TRAINING_ALGO, cfg.USE_AMP, cfg.IMAGE_SIZE = False, "tcc", False, 32
+    cfg.TRAIN.NUM_FRAMES = 12
+    cfg.MODEL.PROJECTION = cfg.MODEL.L2_NORMALIZE = False
+    e = cfg.MODEL.EMBEDDER_MODEL
+    e.NUM_LAYERS, e.HIDDEN_SIZE, e.NUM_HEADS, e.D_FF = 2, 64, 2, 64
+    e.FC_LAYERS, e.CAPACITY_SCALAR, e.EMBEDDING_SIZE = [[32, True], [32, True]], 1, 16
+    e.FC_DROPOUT_RATE = 0.0
+    g = torch.Generator().manual_seed(0)
+    videos = (torch.randn(2, 12, 32, 32, 3, generator=g)
+              * torch.rand(2, 12, 1, 1, 1, generator=g) * 2
+              + torch.randn(2, 12, 1, 1, 3, generator=g))
+    batch = {"videos": videos, "video_masks": torch.ones(2, 12),
+             "seq_lens": torch.tensor([40, 31]),
+             "chosen_steps": torch.stack([torch.randperm(n, generator=g)[:12].sort().values
+                                          for n in (40, 31)])}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        torch.manual_seed(0)
+        model = build_model(cfg, dev)
+        set_trainable(model, cfg.MODEL.TRAIN_BASE)
+        model.train()
+        before = (attention.flash_attention_fwd.launches,
+                  attention.flash_attention_bwd.launches)
+        loss = TCC(cfg).compute_loss(model, {k: v.to(dev) for k, v in batch.items()})["loss"]
+        loss.backward()
+        launched = (attention.flash_attention_fwd.launches - before[0],
+                    attention.flash_attention_bwd.launches - before[1])
+        assert launched == ((2, 2) if dev == "cuda" else (0, 0))
+        out[dev] = loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()
+                                 if p.grad is not None and not n.startswith("res_finetune.")}
+    (la, ga), (lb, gb) = out["cuda"], out["cpu"]
+    assert abs(la - lb) <= 1e-5 * abs(lb)
+    assert set(ga) == set(gb) and gb
+    floor = 1e-2 * max(g.abs().max().item() for g in gb.values())
+    for n, want in gb.items():
+        err = (ga[n] - want).abs().max().item()
+        assert err <= 2e-3 * max(want.abs().max().item(), floor), n

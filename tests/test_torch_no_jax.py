@@ -4,7 +4,9 @@ blocks all four, import the port (its micro-benchmark tools too) and run a
 tiny CPU evaluation, from the `.npy` loaders through the model to the
 default four tasks (their linear probes are the port's numpy + scipy
 ones), then two
-training steps, then an MV-Former evaluation (`configs_mvf/pouring_mvf.yml`
+training steps, a TCC epoch of `configs/tcc_config.yml`'s conv model (the
+supervised augmentation, train_all) and its NUM_CONTEXTS 2 evaluation,
+then an MV-Former evaluation (`configs_mvf/pouring_mvf.yml`
 with a small test ViT), one MV-Former training step, and one step of the
 same model frozen up to block 1 of 2 under MODEL.REMAT (the back end
 trains, the front stays)."""
@@ -72,6 +74,27 @@ SCRIPT = textwrap.dedent("""
     from video_rep_learning_tpu_torch.config import load_yaml_into
     from video_rep_learning_tpu_torch.models import vit
 
+    tcc = get_cfg()
+    load_yaml_into(tcc, "configs/tcc_config.yml")
+    tcc.PATH_TO_DATASET = sys.argv[1]
+    tcc.IMAGE_SIZE, tcc.USE_AMP = 32, False
+    tcc.DATA.NUM_WORKERS = 0
+    tcc.TRAIN.NUM_FRAMES = 4
+    tcc.EVAL.FRAMES_PER_BATCH = 8
+    tcc.EVAL.TASKS = ["kendalls_tau", "retrieval"]
+    e = tcc.MODEL.EMBEDDER_MODEL
+    e.CONV_LAYERS, e.FC_LAYERS, e.CAPACITY_SCALAR = [[8, 1, 0]], [[16, True]], 1
+    e.EMBEDDING_SIZE = 8
+    tcc_trainer = Trainer(tcc, no_eval=True, device="cpu")
+    tcc_loss = tcc_trainer.train_one_epoch(0)["loss"]
+    assert np.isfinite(tcc_loss) and tcc_loss != 0.0, tcc_loss
+    iterator_tasks, tasks = get_tasks(tcc)
+    tcc_metrics = evaluate_once(tcc, tcc_trainer.model.eval(),
+                                build_eval_loaders(tcc, "train"),
+                                build_eval_loaders(tcc, "val"), iterator_tasks,
+                                tasks, 0, None, "cpu")
+    assert all(np.isfinite(v["pouring"]) for v in tcc_metrics.values()), tcc_metrics
+
     vit.VIT_SPECS["vit_test_64"] = vit.ViTSpec(64, 1, 1, 8, img_size=32)
     mvf = get_cfg()
     load_yaml_into(mvf, "configs_mvf/pouring_mvf.yml")
@@ -121,7 +144,7 @@ SCRIPT = textwrap.dedent("""
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                     and m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
-    print("NO_JAX_OK", metrics, mvf_metrics, mvf_loss, part_loss)
+    print("NO_JAX_OK", metrics, tcc_metrics, mvf_metrics, mvf_loss, part_loss)
 """)
 
 

@@ -129,10 +129,13 @@ class SCL:
         features (TRAIN.BACKBONE_WARMUP)."""
         videos = batch["videos"]
         num_frames = self.cfg.TRAIN.NUM_FRAMES
-        B, V, T = videos.shape[:3]
+        B, V = videos.shape[:2]
         flat = videos.reshape((B * V,) + videos.shape[2:])
+        # the masks have a value a step: with DATA.NUM_CONTEXTS > 1 a view
+        # has more frames than steps (the JAX package's reshape to the
+        # frames' count raises there; the conv embedder reads no mask)
         embs = model(flat, num_frames,
-                     video_masks=batch["video_masks"].reshape(B * V, 1, T),
+                     video_masks=batch["video_masks"].reshape(B * V, 1, -1),
                      project=self.cfg.MODEL.PROJECTION,
                      backbone_warmup_active=backbone_warmup_active)
         embs = embs.reshape(B, V, num_frames, embs.shape[-1])

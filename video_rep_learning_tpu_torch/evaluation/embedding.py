@@ -14,7 +14,11 @@ under inference mode, so a partially frozen ViT's front and back end both
 run without grad (no kernel saves anything for a backward). A finished
 video's embeddings stay on the device until the next video's work has been
 queued (the one-record holdback), so the copy back to the host does not stall
-the device between videos. The frame-packed sweep (`_iter_frameflat`) and
+the device between videos. With DATA.NUM_CONTEXTS n > 1 (the conv and
+vanilla embedders) each step of a chunk brings its n context frames,
+CONTEXT_STRIDE * (-(n-1) .. 0) from it, clipped to the video, steps-major
+as the training sampler lays them out; the chunk runs at its exact length,
+no frame masked. The frame-packed sweep (`_iter_frameflat`) and
 EVAL.PACK_VIDEOS (which raises) come in a later slice.
 """
 
@@ -33,11 +37,13 @@ logger = get_logger(__name__)
 
 
 def embed_chunk(cfg, model, frames, dims):
-    """(n, H, W, 3) uint8 frames on the model's device -> (n, emb) fp32
-    embeddings of one chunk, positions taken from its true length n."""
+    """(n, H, W, 3) uint8 frames on the model's device, n = steps x
+    DATA.NUM_CONTEXTS -> (steps, emb) fp32 embeddings of one chunk,
+    positions taken from its true length n."""
     video = eval_augment(frames.float() / 255.0, cfg.IMAGE_SIZE, dims=dims)
     n = video.shape[0]
-    return model(video[None], n, project=False, true_seq_len=n)[0]
+    num_frames = n // max(int(cfg.DATA.NUM_CONTEXTS), 1)
+    return model(video[None], num_frames, project=False, true_seq_len=n)[0]
 
 
 def _record(item, embs):
@@ -59,15 +65,13 @@ def _materialize(dev_rec):
 def iter_video_embeddings(cfg, model, data_loader, device):
     """Yield one record per video of `data_loader` (items as
     `EvalLoader` gives them), in loader order."""
-    if int(cfg.DATA.NUM_CONTEXTS) != 1:
-        raise NotImplementedError(
-            "DATA.NUM_CONTEXTS > 1 (conv/vanilla embedders) comes with the "
-            "TCC/TCN slice")
     if int(cfg.EVAL.PACK_VIDEOS) > 1:
         raise NotImplementedError(
             "EVAL.PACK_VIDEOS > 1 (the frame-packed sweep) comes with ROADMAP "
             "queue 1 item 7")
     max_fpb = cfg.EVAL.FRAMES_PER_BATCH
+    num_contexts = int(cfg.DATA.NUM_CONTEXTS)
+    ctx = cfg.DATA.CONTEXT_STRIDE * np.arange(-(num_contexts - 1), 1)
     prev = None
     for item in data_loader:
         seq_len = int(item["seq_len"])
@@ -79,8 +83,13 @@ def iter_video_embeddings(cfg, model, data_loader, device):
         dims = tuple(float(d) for d in item["dims"])
         with torch.inference_mode():
             video = torch.as_tensor(np.array(item["video"]), device=device)
-            embs = [embed_chunk(cfg, model, video[i:i + frames_per_batch], dims)
-                    for i in range(0, seq_len, frames_per_batch)]
+            if num_contexts != 1:  # each step's context frames, steps-major
+                steps = np.clip(np.arange(seq_len)[:, None] + ctx[None, :], 0,
+                                seq_len - 1)
+                video = video[torch.as_tensor(steps.reshape(-1), device=device)]
+            span = frames_per_batch * num_contexts
+            embs = [embed_chunk(cfg, model, video[i:i + span], dims)
+                    for i in range(0, seq_len * num_contexts, span)]
         if prev is not None:
             yield _materialize(prev)
         prev = (item, embs)

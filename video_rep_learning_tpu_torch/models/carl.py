@@ -28,6 +28,10 @@ strictly.
   stops the gradient at the backbone's features in the smart head, as in
   the JAX package: with a partial ViT no gradient then reaches the back end
   through them.
+- The conv and vanilla embedders (EMBEDDER_TYPE conv / vanilla, the TCC /
+  TCN configs) take DATA.NUM_CONTEXTS frames a step: the conv path runs the
+  ResNet through layer3 (1024 channels) with LAYER 3, else through layer4,
+  and never a finetuned tail; vanilla with LAYER 3 has the layer4 tail.
 - Still to come, each with its slice: a ViT under TRAIN_BASE train_all,
   late fusion over a ViT, QUANTIZE_BACKBONE (W8A8 int8 ViT matmuls).
 """
@@ -44,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ConfigNode
 from ..data.splits import DATASET_TO_NUM_CLASSES
-from .embedder import Classifier, MLPHead, TransformerEmbModel
+from .embedder import Classifier, ConvEmbed, MLPHead, TransformerEmbModel
 from .mvformer import MultiEntityTransformerEmbModel
 from .resnet import ResNet50Stages, ResNet50Trunk
 from .vit import VIT_SPECS, ViTBackEnd, ViTFrontEnd, ViTSpec, parse_smart_feats
@@ -72,6 +76,9 @@ class ModelSpec:
     projection_hidden: int
     use_amp: bool
     train_base: str = "frozen"
+    embedder_type: str = "transformer"  # transformer | conv | vanilla
+    conv_params: Tuple[Tuple[int, int, int], ...] = ()  # conv: (ch, k, tpad)
+    num_contexts: int = 1         # conv / vanilla: frames a step
     fusion_type: str = "late"     # late | smart
     vit_spec: Optional[ViTSpec] = None  # None = ResNet backbone
     vit_front_blocks: int = 0     # frozen ViT blocks (the depth: fully frozen)
@@ -101,9 +108,13 @@ def _resolve_vit(cfg, name, fusion_type):
     if name not in VIT_SPECS:
         raise ValueError(f"unknown TIMM model {name}")
     vit = VIT_SPECS[name]
+    if m.EMBEDDER_TYPE != "transformer":
+        raise NotImplementedError(
+            f"EMBEDDER_TYPE {m.EMBEDDER_TYPE} over a ViT backbone (no shipped "
+            "config) comes with ROADMAP queue 1 item 8")
     if fusion_type != "smart":
         raise NotImplementedError(
-            "late fusion over a ViT backbone comes in a later slice")
+            "late fusion over a ViT backbone comes with ROADMAP queue 1 item 3")
     if m.TRAIN_BASE == "train_all":
         raise NotImplementedError(
             "a ViT trained end to end (TRAIN_BASE train_all) comes in a later "
@@ -125,16 +136,16 @@ def _resolve_vit(cfg, name, fusion_type):
 
 def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
     """The JAX package's `resolve_model_spec` for the wirings ported so far:
-    a ResNet with the late-fusion head (CARL), and the smart multi-entity
-    head (MV-Former) over a fully or partially frozen timm ViT or a
-    ResNet."""
+    a ResNet with the late-fusion head (CARL), the conv or vanilla
+    embedder (TCC / TCN), and the smart multi-entity head (MV-Former) over
+    a fully or partially frozen timm ViT or a ResNet."""
     m = cfg.MODEL
     e = m.EMBEDDER_MODEL
     network = m.BASE_MODEL.NETWORK
     fusion_type = e.FUSION_TYPE
-    if m.EMBEDDER_TYPE != "transformer":
-        raise NotImplementedError(
-            f"EMBEDDER_TYPE {m.EMBEDDER_TYPE} comes with the TCC/TCN slice")
+    embedder_type = m.EMBEDDER_TYPE
+    if embedder_type not in ("transformer", "conv", "vanilla"):
+        raise ValueError(f"EMBEDDER_TYPE {embedder_type}")
     if fusion_type not in ("late", "smart"):
         raise ValueError(f"FUSION_TYPE {fusion_type}")
     if e.LATE_TYPE not in ("cls", "spatial"):
@@ -150,7 +161,16 @@ def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
         vit, taps, out_channel, front = _resolve_vit(cfg, network[5:], fusion_type)
     else:
         out_channel = 2048  # layer4 ends either the trunk or the tail
-        upto, ft_start = {3: (3, 4), 2: (2, 3)}.get(m.BASE_MODEL.LAYER, (4, 0))
+        layer = m.BASE_MODEL.LAYER
+        if embedder_type == "conv":
+            # the trunk through layer3 (1024 channels) or layer4; the conv
+            # path never applies a finetuned tail (`resnet_c2d.py:191-226`)
+            upto, ft_start = (3, 0) if layer == 3 else (4, 0)
+            out_channel = 1024 if layer == 3 else 2048
+        elif embedder_type == "vanilla":
+            upto, ft_start = (3, 4) if layer == 3 else (4, 0)
+        else:
+            upto, ft_start = {3: (3, 4), 2: (2, 3)}.get(layer, (4, 0))
         if m.REMAT and ft_start:
             raise NotImplementedError(
                 "MODEL.REMAT over a trainable ResNet tail (the JAX package's "
@@ -180,6 +200,10 @@ def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
         projection_hidden=m.PROJECTION_SIZE,
         use_amp=bool(cfg.USE_AMP),
         train_base=m.TRAIN_BASE,
+        embedder_type=embedder_type,
+        conv_params=tuple((int(ch) * cap, int(k), int(tp))
+                          for ch, k, tp in (e.CONV_LAYERS or [])),
+        num_contexts=int(cfg.DATA.NUM_CONTEXTS),
         fusion_type=fusion_type,
         vit_spec=vit,
         vit_front_blocks=front,
@@ -227,7 +251,12 @@ class CARLModel(nn.Module):
             self.backbone = ResNet50Trunk(s.resnet_trunk_upto)
             self.res_finetune = (ResNet50Stages(s.resnet_finetune_start)
                                  if s.resnet_finetune_start else None)
-        if s.fusion_type == "smart":
+        if s.embedder_type != "transformer":  # vanilla: no conv layers
+            self.embed = ConvEmbed(
+                s.out_channel, s.embedding_size,
+                s.conv_params if s.embedder_type == "conv" else (),
+                s.fc_channels, s.drop_rate, s.num_contexts)
+        elif s.fusion_type == "smart":
             self.embed = MultiEntityTransformerEmbModel(
                 s.out_channel, s.hidden_size, s.embedding_size, s.fc_channels,
                 s.drop_rate, s.num_layers, s.num_heads, s.d_ff,
@@ -337,7 +366,9 @@ class CARLModel(nn.Module):
         embeddings (BV, T, emb) fp32. `backbone_warmup_active` reaches the
         smart head only, as in the JAX package."""
         s = self.spec
-        if s.fusion_type == "smart":
+        if s.embedder_type != "transformer":
+            emb = self.embed(feats, num_frames or feats.shape[1])
+        elif s.fusion_type == "smart":
             if s.vit_spec is None:  # a ResNet's NCHW maps -> NHWC token grids
                 feats = feats.permute(0, 1, 3, 4, 2)
             emb = self.embed(feats, video_masks=video_masks, cls_emb=cls_emb,

@@ -251,6 +251,10 @@ class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
     pass
 
 
+class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
+    pass
+
+
 class FCBNStack(nn.Sequential):
     """[Dropout -> Linear -> BatchNorm1d -> ReLU] per width, so the Linear of
     group g is child 4g+1 and its BatchNorm child 4g+2 (reference layout)."""

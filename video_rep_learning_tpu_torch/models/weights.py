@@ -11,6 +11,12 @@ as `LOGDIR/checkpoints/checkpoint_epoch_%05d.pth` (`export_carl_checkpoint`,
 `export_mvf_checkpoint`, `tools/export_torch_checkpoint.py`); the port loads
 either with `load_state_dict(strict=True)`.
 
+The reference layout has no place for the conv and vanilla embedders
+(the JAX exporter emits a transformer head whatever the model), so
+`context_embed_state_dict` carries their JAX parameters and batch
+statistics into the port's `embed.*` names (the JAX module names);
+the rest of such a model's dict is the reference layout's.
+
 A partially frozen ViT (LAYER = L below the depth) keeps the front's
 `backbone.model.{patch_embed, cls_token, pos_embed, blocks.0..L-1}` and
 moves blocks L.. and the final norm into the trainable back end,
@@ -37,6 +43,43 @@ _CKPT_RE = re.compile(r"checkpoint_epoch_(\d+)\.pth$")
 def state_dict_from_numpy(sd) -> Dict[str, torch.Tensor]:
     """The numpy reference-layout dict -> torch tensors (copies)."""
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+def context_embed_state_dict(params, batch_stats) -> Dict[str, np.ndarray]:
+    """The JAX `ConvEmbed` / `VanillaEmbed` variables, flat dicts keyed by
+    flax path tuples under ("embed", ...), -> the port's `embed.*` state
+    dict (numpy): Conv kernels (k, k, k, I, O) -> (O, I, k, k, k), Dense
+    kernels transposed, BatchNorm scale / bias / mean / var ->
+    weight / bias / running_mean / running_var (and a zero
+    num_batches_tracked). Raises on a path it does not know."""
+    sd = {}
+    for path, v in params.items():
+        if path[0] != "embed":
+            continue
+        name, leaf = path[1], path[-1]
+        v = np.asarray(v, np.float32)
+        if name.startswith("convbn") and path[2:] in (("BatchNorm_0", "scale"),
+                                                      ("BatchNorm_0", "bias")):
+            sd[f"embed.{name}.{'weight' if leaf == 'scale' else 'bias'}"] = v
+            sd[f"embed.{name}.num_batches_tracked"] = np.asarray(0, np.int64)
+        elif name.startswith("conv") and path[2:] in (("kernel",), ("bias",)):
+            sd[f"embed.{name}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
+                np.transpose(v, (4, 3, 0, 1, 2)) if leaf == "kernel" else v)
+        elif ((name.startswith("fc") or name == "embedding_layer")
+              and path[2:] in (("Dense_0", "kernel"), ("Dense_0", "bias"))):
+            sd[f"embed.{name}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
+                v.T if leaf == "kernel" else v)
+        else:
+            raise KeyError(f"not a conv / vanilla embedder parameter: {path}")
+    for path, v in batch_stats.items():
+        if path[0] != "embed":
+            continue
+        if not (path[1].startswith("convbn")
+                and path[2:] in (("BatchNorm_0", "mean"), ("BatchNorm_0", "var"))):
+            raise KeyError(f"not a conv embedder statistic: {path}")
+        which = "running_mean" if path[-1] == "mean" else "running_var"
+        sd[f"embed.{path[1]}.{which}"] = np.asarray(v, np.float32)
+    return sd
 
 
 def latest_checkpoint(logdir: str):

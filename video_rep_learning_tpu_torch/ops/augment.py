@@ -13,9 +13,14 @@ sample lies outside the input) and applies them as two matmuls, so the crop
 is never materialised.
 
 Training samples every random value of a step on the host from one
-`torch.Generator` (`sample_ssl_batch`), apart from applying them
-(`ssl_batch_augment`), so a test can feed both packages the same values.
-`supervised_augment` (the non-SSL recipe) comes in a later slice.
+`torch.Generator` (`sample_ssl_batch`, `sample_supervised_batch`), apart
+from applying them (`ssl_batch_augment`, `supervised_batch_augment`), so a
+test can feed both packages the same values. The supervised (non-SSL)
+recipe is `supervised_augment`'s: always-on brightness / contrast / hue /
+saturation jitters on the whole canvas (the contrast mean over the clip's
+true extent), then the RandomResizedCrop box or the true extent resampled,
+the flip, and the normalisation; plain torch, as the JAX package leaves it
+to XLA.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from .photometric import crop_photometric, fitting_plan, photometric
+from .photometric import _hue, _luma, crop_photometric, fitting_plan, photometric
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -74,17 +79,24 @@ def resize_bilinear(video, size: int):
                      _weight_mat(W, size, 1.0 / (size / W), 0.0, video.device))
 
 
+def crop_matrices(H: int, W: int, top, left, height, width, out_size: int,
+                  device="cpu"):
+    """The weights (wy (H, out), wx (W, out)) of `crop_resize`'s resample,
+    the JAX package's `crop_resize` (`scale_and_translate`) to the last bit;
+    the box values are fp32 scalars."""
+    top, left, height, width = (_f32(v) for v in (top, left, height, width))
+    scale_y, scale_x = out_size / height, out_size / width
+    inv_y, inv_x = 1.0 / scale_y, 1.0 / scale_x
+    return (_weight_mat(H, out_size, inv_y, (-top * scale_y) * inv_y, device),
+            _weight_mat(W, out_size, inv_x, (-left * scale_x) * inv_x, device))
+
+
 def crop_resize(video, top, left, height, width, out_size: int):
     """Crop the (top, left, height, width) box and resize it bilinearly to
     (out_size, out_size) in one resample; the box values are fp32 scalars."""
     _, H, W, _ = video.shape
-    dev = video.device
-    top, left, height, width = (_f32(v) for v in (top, left, height, width))
-    scale_y, scale_x = out_size / height, out_size / width
-    inv_y, inv_x = 1.0 / scale_y, 1.0 / scale_x
-    wy = _weight_mat(H, out_size, inv_y, (-top * scale_y) * inv_y, dev)
-    wx = _weight_mat(W, out_size, inv_x, (-left * scale_x) * inv_x, dev)
-    return _resample(video, wy, wx)
+    return _resample(video, *crop_matrices(H, W, top, left, height, width,
+                                           out_size, video.device))
 
 
 def uniform_crop(video, size: int, spatial_idx: int = 1):
@@ -355,3 +367,138 @@ def ssl_batch_augment(videos, sampled, params: AugmentParams):
 
 ssl_batch_augment.crop_route = 0
 ssl_batch_augment.split_route = 0
+
+
+# ---------------------------------------------------------------------------
+# the supervised (non-SSL) training recipe
+# ---------------------------------------------------------------------------
+
+class SupervisedParams(NamedTuple):
+    """cfg.AUGMENTATION for `supervised_augment` (`data_augment.py:416-441`):
+    each jitter on or off with its largest delta, RANDOM_CROP, RANDOM_FLIP."""
+
+    image_size: int = 224
+    brightness: bool = True
+    brightness_max_delta: float = 0.8
+    contrast: bool = True
+    contrast_max_delta: float = 0.8
+    hue: bool = True
+    hue_max_delta: float = 0.2
+    saturation: bool = True
+    saturation_max_delta: float = 0.8
+    random_crop: bool = True
+    random_flip: bool = True
+
+    @classmethod
+    def from_cfg(cls, cfg):
+        a = cfg.AUGMENTATION
+        return cls(cfg.IMAGE_SIZE, bool(a.BRIGHTNESS), float(a.BRIGHTNESS_MAX_DELTA),
+                   bool(a.CONTRAST), float(a.CONTRAST_MAX_DELTA), bool(a.HUE),
+                   float(a.HUE_MAX_DELTA), bool(a.SATURATION),
+                   float(a.SATURATION_MAX_DELTA), bool(a.RANDOM_CROP),
+                   bool(a.RANDOM_FLIP))
+
+
+def sample_supervised_batch(gen, B: int, H: int, W: int, dims,
+                            params: SupervisedParams):
+    """All random values of one step's supervised augmentation, drawn on the
+    host from `gen` clip by clip: the brightness, contrast, hue and
+    saturation factors (factors 1 + U[-v, v], hue U[-v, v]; each drawn
+    whether its jitter is on or not), the RandomResizedCrop box against the
+    clip's true (h, w) under RANDOM_CROP (else the whole true extent), the
+    flip under RANDOM_FLIP. Returns CPU tensors factors (B, 4) [brightness,
+    contrast, hue, saturation], boxes (B, 4) (top, left, height, width),
+    flips (B,) bool, dims (B, 2), and the crop's resample matrices ry
+    (B, S, H), rx (B, W, S). `dims` (B, 2) is each clip's true (h, w) inside
+    the (H, W) canvas, or None for the whole canvas."""
+    p = params
+    S = p.image_size
+    factors, boxes, flips, true_dims, ry, rx = [], [], [], [], [], []
+    for b in range(B):
+        h, w = (H, W) if dims is None else (float(dims[b][0]), float(dims[b][1]))
+        factors.append(torch.stack([
+            1.0 + _uniform(gen, -p.brightness_max_delta, p.brightness_max_delta),
+            1.0 + _uniform(gen, -p.contrast_max_delta, p.contrast_max_delta),
+            _uniform(gen, -p.hue_max_delta, p.hue_max_delta),
+            1.0 + _uniform(gen, -p.saturation_max_delta, p.saturation_max_delta)]))
+        box = (sample_rrc_box(gen, h, w) if p.random_crop
+               else (_f32(0.0), _f32(0.0), _f32(h), _f32(w)))
+        boxes.append(torch.stack(box))
+        flips.append(bool(_uniform(gen, 0.0, 1.0) < 0.5) and p.random_flip)
+        true_dims.append(torch.stack([_f32(h), _f32(w)]))
+        wy, wx = crop_matrices(H, W, *box, S)
+        ry.append(wy.t())
+        rx.append(wx)
+    return {"factors": torch.stack(factors), "boxes": torch.stack(boxes),
+            "flips": torch.tensor(flips), "dims": torch.stack(true_dims),
+            "ry": torch.stack(ry).contiguous(), "rx": torch.stack(rx)}
+
+
+# the ops on channel-planar (..., 3, H, W) frames in [0, 1]; a factor is a
+# tensor that broadcasts against the frames (a value per clip)
+
+def adjust_brightness(x, f):
+    return (x * f).clamp(0.0, 1.0)
+
+
+def adjust_contrast(x, f, extent=None):
+    """Blend with the mean luma of each frame over `extent` (a 0 / 1 mask
+    broadcasting to (..., H, W): the clip's true extent inside its canvas),
+    or over the whole frame."""
+    gray = _luma(x)
+    if extent is None:
+        mean = gray.mean(dim=(-2, -1), keepdim=True)
+    else:
+        mean = ((gray * extent).sum(dim=(-2, -1), keepdim=True)
+                / extent.sum(dim=(-2, -1), keepdim=True).clamp(min=1.0))
+    return (x * f + mean[..., None, :, :] * (1.0 - f)).clamp(0.0, 1.0)
+
+
+def adjust_saturation(x, f):
+    return (x * f + _luma(x)[..., None, :, :] * (1.0 - f)).clamp(0.0, 1.0)
+
+
+def adjust_hue(x, f):
+    """torchvision adjust_hue through HSV (`ops/photometric.py::_hue`, the
+    JAX package's `adjust_hue` line for line); `f` has x's dimensions."""
+    lead, tail = x.shape[:-3], x.shape[-3:]
+    shift = torch.broadcast_to(f[..., 0, :, :], lead + (1, 1)).reshape(-1, 1, 1)
+    return _hue(x.reshape((-1,) + tail), shift).view(x.shape)
+
+
+def hflip(x):
+    return torch.flip(x, dims=(-1,))
+
+
+def supervised_batch_augment(videos, sampled, params: SupervisedParams):
+    """The supervised recipe on videos (B, T, H, W, 3) uint8 on the device
+    with the values of `sample_supervised_batch` -> (B, T, S, S, 3) fp32
+    normalised frames, a channels-last view of channel-planar memory: the
+    jitters that are on in the JAX order (brightness, contrast, hue,
+    saturation) on the whole canvas, the crop box resampled to S x S (the
+    JAX recipe's last resize, S x S to S x S, is the identity), the flip,
+    the normalisation."""
+    B, T, H, W, _ = videos.shape
+    dev = videos.device
+    p = params
+    m = {k: sampled[k].to(dev, non_blocking=True)
+         for k in ("factors", "dims", "ry", "rx", "flips")}
+    f = m["factors"].view(B, 1, 1, 1, 1, 4)
+    x = videos.permute(0, 1, 4, 2, 3).float().div_(255.0)  # (B, T, 3, H, W)
+    if p.brightness:
+        x = adjust_brightness(x, f[..., 0])
+    if p.contrast:
+        dims = m["dims"].view(B, 1, 1, 2)
+        ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+        xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+        extent = ((ys < dims[..., 0]) & (xs < dims[..., 1])).float()
+        x = adjust_contrast(x, f[..., 1], extent[:, None])
+    if p.hue:
+        x = adjust_hue(x, f[..., 2])
+    if p.saturation:
+        x = adjust_saturation(x, f[..., 3])
+    x = torch.matmul(torch.matmul(m["ry"][:, None, None], x), m["rx"][:, None, None])
+    x = torch.where(m["flips"].view(B, 1, 1, 1, 1), hflip(x), x)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev).view(3, 1, 1)
+    std = torch.tensor(IMAGENET_STD, device=dev).view(3, 1, 1)
+    return ((x - mean) / std).permute(0, 1, 3, 4, 2)

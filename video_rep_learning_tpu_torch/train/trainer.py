@@ -1,12 +1,15 @@
 """The training loop.
 
 Counterpart of `video_rep_learning_tpu/train/trainer.py` (`Trainer` with
-`init_state`, `train_one_epoch`, `val_one_epoch`, `fit`), for the SSL path:
-per step, the uint8 clips go to the device, are augmented there (two views,
+`init_state`, `train_one_epoch`, `val_one_epoch`, `fit`): per step, the
+uint8 clips go to the device, are augmented there (SSL: two views,
 `ops/augment.py`: the crop+photometric kernel under USE_AMP, else the matmul
-crop and the photometric kernel), run through the model in train mode, the
-SCL loss, the backward (the encoder's attention backward is the flash
-backward kernel), global-norm clip, the optimizer and the per-epoch LR.
+crop and the photometric kernel; otherwise the supervised recipe on one clip,
+`supervised_batch_augment`, in val too, as the JAX val step), run through
+the model in train mode, the algorithm's loss (SCL, TCC, TCN or
+classification), the backward (the encoder's attention backward is the
+flash backward kernel), global-norm clip, the optimizer and the per-epoch
+LR. Classification's val "loss" is its masked accuracy.
 Reference parity targets: `train.py:57-228`, the marker telemetry (marker 0 =
 data wait, 1 = H2D, 2 = step dispatch, 5 = logging).
 
@@ -30,8 +33,8 @@ data wait, 1 = H2D, 2 = step dispatch, 5 = logging).
   epochs.
 - The SCL loss goes through `algos/scl.py::scl_loss_dispatch`: the fused
   CUDA kernels under VRL_FUSED_SCL=1, or at N >= 8192 frames by default.
-Left for later slices: `supervised_augment` (non-SSL training), the other
-algorithms, mid-epoch checkpoints, the val video panels, multi-process DDP.
+Left for later slices: mid-epoch checkpoints, the val video panels,
+multi-process DDP.
 """
 
 from __future__ import annotations
@@ -48,14 +51,16 @@ from ..data import construct_dataloader
 from ..logging_utils import get_logger
 from ..models import build_model, set_trainable
 from ..models.weights import load_model_state
-from ..ops.augment import AugmentParams, sample_ssl_batch, ssl_batch_augment
+from ..ops.augment import (AugmentParams, SupervisedParams, sample_ssl_batch,
+                           sample_supervised_batch, ssl_batch_augment,
+                           supervised_batch_augment)
 from .checkpoint import resume, save_checkpoint
 from .optimizer import Optimizer, learning_rate_for_epoch
 
 logger = get_logger(__name__)
 
 TRAIN_STREAM, VAL_STREAM, DROPOUT_STREAM = 0, 1, 2
-BATCH_KEYS = ("video_masks", "seq_lens", "chosen_steps")
+BATCH_KEYS = ("video_masks", "seq_lens", "chosen_steps", "labels")
 
 
 def step_seed(seed: int, stream: int, epoch: int, it: int) -> int:
@@ -69,9 +74,6 @@ class Trainer:
 
     def __init__(self, cfg: ConfigNode, summary_writer=None, no_eval: bool = False,
                  build_loaders: bool = True, device="cuda"):
-        if not cfg.SSL:
-            raise NotImplementedError(
-                "supervised (non-SSL) training comes in a later slice")
         if cfg.CHECKPOINT.SAVE_EVERY_N_ITERS > 0:
             raise NotImplementedError(
                 "CHECKPOINT.SAVE_EVERY_N_ITERS > 0 (mid-epoch checkpoints with "
@@ -96,9 +98,12 @@ class Trainer:
                 cfg, "train", no_eval=no_eval)
             if not no_eval:
                 self.val_loader, self.val_emb_loader = construct_dataloader(cfg, "val")
-        self.aug = AugmentParams(image_size=cfg.IMAGE_SIZE,
-                                 strength=cfg.AUGMENTATION.STRENGTH,
-                                 use_amp=bool(cfg.USE_AMP))
+        if cfg.SSL:
+            self.aug = AugmentParams(image_size=cfg.IMAGE_SIZE,
+                                     strength=cfg.AUGMENTATION.STRENGTH,
+                                     use_amp=bool(cfg.USE_AMP))
+        else:
+            self.aug = SupervisedParams.from_cfg(cfg)
         self.start_epoch = 0
         self.last_markers: Dict[int, float] = {}
 
@@ -123,22 +128,30 @@ class Trainer:
     # -- one step ---------------------------------------------------------
 
     def device_batch(self, batch):
-        """The numpy batch's uint8 videos and per-frame arrays on the device
-        (the clip's true dims stay on the host for the box sampling)."""
+        """The numpy batch's uint8 videos, (B, V, T, H, W, 3) under SSL else
+        (B, T, H, W, 3), and its per-frame arrays (BATCH_KEYS that it has) on
+        the device (the clip's true dims stay on the host for the box
+        sampling)."""
         dev = {"videos": torch.as_tensor(np.ascontiguousarray(batch["videos"])
                                          ).to(self.device, non_blocking=True)}
         for k in BATCH_KEYS:
-            dev[k] = torch.as_tensor(np.asarray(batch[k])).to(self.device)
+            if k in batch:
+                dev[k] = torch.as_tensor(np.asarray(batch[k])).to(self.device)
         return dev
 
     def augment(self, batch, dev_batch, stream: int, epoch: int, it: int):
-        """The two-view SSL augmentation of one step, its random values drawn
-        from the step's generator."""
-        B, V, _, H, W, _ = dev_batch["videos"].shape
+        """The step's augmentation, its random values drawn from the step's
+        generator: two SSL views a clip, or the supervised recipe."""
+        videos = dev_batch["videos"]
         gen = torch.Generator().manual_seed(
             step_seed(self.cfg.RNG_SEED, stream, epoch, it))
-        sampled = sample_ssl_batch(gen, B, V, H, W, batch.get("dims"), self.aug)
-        return ssl_batch_augment(dev_batch["videos"], sampled, self.aug)
+        if self.cfg.SSL:
+            B, V, _, H, W, _ = videos.shape
+            sampled = sample_ssl_batch(gen, B, V, H, W, batch.get("dims"), self.aug)
+            return ssl_batch_augment(videos, sampled, self.aug)
+        B, _, H, W, _ = videos.shape
+        sampled = sample_supervised_batch(gen, B, H, W, batch.get("dims"), self.aug)
+        return supervised_batch_augment(videos, sampled, self.aug)
 
     def backbone_warmup_active(self, epoch: int) -> bool:
         """TRAIN.BACKBONE_WARMUP: epochs before it keep the backbone out of
@@ -212,8 +225,9 @@ class Trainer:
 
     @torch.no_grad()
     def val_one_epoch(self, epoch: int) -> Dict[str, float]:
-        """The SSL loss over the val loader with running BN statistics and
-        no dropout (`train=False` in the JAX package)."""
+        """The loss over the val loader with running BN statistics and no
+        dropout (`train=False` in the JAX package); for classification the
+        masked accuracy."""
         self.model.eval()
         data_size = len(self.val_loader)
         losses = []
