@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
 kernels from the checkout, holds each against its plain PyTorch version,
-drives the CARL embedding and training paths and the MV-Former embedding
-and training paths end to end at full model width, and compares the card
-with the CPU on each.
+drives the CARL embedding and training paths, the MV-Former embedding and
+training paths, the supervised paths, late fusion over a ViT, the FineGym
+harness and a mid-epoch resume end to end at full model width, and compares
+the card with the CPU on each.
 
     python3 chip_smoke.py
 
@@ -20,7 +21,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    - flash-attention forward and backward in fp32 and bf16 at the CARL
      shapes and the MV-Former encoder's (2, 8, 720, 32), a long key range,
      padded keys and a fully masked row, both bit for bit against a second
-     launch, timed with their share of the bound and SDPA's time;
+     launch, timed with their share of the bound and SDPA's time; #1 also
+     unmasked at (1, 8, 12000, 32), fg99_mvf.yml's eval chunk (2000 frames x
+     6 LSTP tokens), held and timed beside SDPA;
    - crop+photometric and photometric at the CARL training shape
      (2 views x 240 frames of 256x256 uint8 -> 224), every flag, blur sigma
      0.1 and 2.0, a padded canvas, fp32 and bf16 output, and bit for bit
@@ -97,7 +100,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    outside [0, 1]: NaN where the plain version has NaN, bit for bit
    elsewhere); every row held against its plain version (tolerances above
    `TOOLS`), timed beside its plain version, library call and bound. None of their four kernels launches on the model
-   paths of phases 4-13 and 15;
+   paths of phases 4-13, 15 and 16;
 15. the supervised paths at full width over the synthetic set (`SUP_CFGS`):
    tcc_transformer_config (TCC regression_mse_var, l2 similarity, 2 clips x
    240 frames, the supervised augmentation, USE_AMP) through the training
@@ -112,7 +115,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    classification_transformer_config and its val epoch (masked accuracy in
    [0, 1]); then one fp32 TCC step of tcc_transformer_config, 96 frames a
    clip with every supervised jitter on, card vs CPU (loss and head
-   gradients on STEP_TOL, layer4 in fp64, as phase 6).
+   gradients on STEP_TOL, layer4 in fp64, as phase 6);
+16. (a) late fusion over a ViT (`configs_mvf/ablate_dinoB8_*`, ViT-B/8 fully
+   frozen in bf16, 2 views x 80 frames a step, the synthetic Pouring set in
+   place of Penn Action): ablate_dinoB8_avg (late-spatial, taps 3,7,11 ->
+   2304 channels) through the training CLI for an epoch with a mid-epoch
+   checkpoint every 2 steps, then `--continue_train` for a second (#1 and
+   #3 once an encoder layer for each step, val batch and eval chunk, #12 a
+   step and val batch, the ViT by its blocks, only epoch checkpoints left,
+   every `backbone.*` bit-identical); warm steps of ablate_dinoB8_cls and
+   ablate_dinoB8_max with their exact launches (the ViT by its 40-frame
+   chunks, #1 / #3 / #12); a late-cls checkpoint holding the ViT under
+   `backbone.*`, reloaded strictly; the eval sweep of late-cls and
+   late-spatial (warm frames/s); 16 frames of one video card vs CPU in
+   fp32 for each; (b) FineGym: a synthetic gym99-format set (20 train + 6
+   val videos of 60-150 frames at 256 px), fg99_mvf.yml for an epoch
+   through the training CLI (its evaluation is the harness), then the
+   harness through `evaluate_finegym`'s function at the config's probe
+   settings (LR 50, 100 epochs, fractions 0.1 / 0.5 / 1.0): one pickle per
+   video and split, 256-d finite embeddings, accuracies in [0, 100], the
+   sweep's frames/s and the probe's seconds; (c) pouring_mvf.yml (fully
+   frozen, VRL_FUSED_SCL=1) for an epoch of 6 steps with a mid checkpoint
+   every 2, uninterrupted, and again stopped after the second mid save
+   and resumed: every tensor and optimizer moment bit-identical.
 Phase 3 also holds #7 (matmul + GELU) and #9 (the LN-MLP half-block)
 against their plain versions, times #9 at 480 frames too, and checks the
 six ViT kernels' gradients (the kernel forward, the plain backward chunked
@@ -153,6 +178,9 @@ TRAIN_ATTN_SHAPE = (2, 8, 240, 32)
 # x 240 frames, fp32 (models/mvformer.py); #1 and #3 are timed at both
 MVF_ATTN_SHAPE = (2, 8, 720, 32)
 TIMED_ATTN_SHAPES = (TRAIN_ATTN_SHAPE, MVF_ATTN_SHAPE)
+# fg99_mvf.yml's eval chunk (EVAL.FRAMES_PER_BATCH 2000 x 6 LSTP tokens): the
+# longest sequence any path gives #1, unmasked; held and timed in phase 3
+FG_ATTN_SHAPE = (1, 8, 12000, 32)
 TOL = {  # max |kernel - plain(fp32)|
     # fp32: the same fp32 math summed in another order
     (torch.float32, "out"): 1e-5, (torch.float32, "lse"): 1e-4,
@@ -389,7 +417,7 @@ def phase_kernel_vs_plain(main_lens):
 
     g = torch.Generator().manual_seed(SEED)
     cases = [(1, 8, s, 32) for s in (37, 128, 240, 600, 1000)]
-    cases += [(2, 8, 240, 32), (1, 8, 6000, 32), (2, 12, 785, 64)]
+    cases += [(2, 8, 240, 32), (1, 8, 6000, 32), (2, 12, 785, 64), FG_ATTN_SHAPE]
     cases += sorted({(1, 8, n, 32) for n in main_lens})
     main_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -397,7 +425,8 @@ def phase_kernel_vs_plain(main_lens):
             B, H, S, d = shape
             q, k, v = (torch.randn(shape, generator=g).to("cuda", dtype)
                        for _ in range(3))
-            masked = shape not in [(1, 8, n, 32) for n in main_lens]
+            masked = (shape not in [(1, 8, n, 32) for n in main_lens]
+                      and shape != FG_ATTN_SHAPE)
             mask = None
             if masked:  # padded tail keys, plus a fully masked batch row
                 mask = (torch.rand(B, S, generator=g) > 0.1).float()
@@ -425,6 +454,7 @@ def phase_kernel_vs_plain(main_lens):
             if dtype == torch.float32 and not masked:
                 main_err = max(main_err, e_out)
 
+    fg = time_flash_fwd(FG_ATTN_SHAPE, g)
     for shape in CARL_TIMING_SHAPES:
         q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
         scale = shape[-1] ** -0.5
@@ -435,7 +465,33 @@ def phase_kernel_vs_plain(main_lens):
         log(f"time {shape} fp32 no mask: flash_attn_fwd kernel "
             f"{(k1 + k2) / 2:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
             f"attention_reference {(p1 + p2) / 2:.4f} ms ({p1:.4f}, {p2:.4f})")
-    return main_err
+    return main_err, fg
+
+
+def time_flash_fwd(shape, g):
+    """#1 at `shape` fp32 without a mask (the eval sweep's form): kernel,
+    plain version, bound and SDPA."""
+    import torch.nn.functional as F
+
+    from video_rep_learning_tpu_torch.ops.attention import (attention_reference,
+                                                            flash_attention_fwd)
+    from video_rep_learning_tpu_torch.ops.bounds import attention_fwd, bound
+
+    B, H, S, d = shape
+    q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
+    scale = d ** -0.5
+    ms, plain_ms, lib_ms, host_ms = timed(
+        lambda: flash_attention_fwd(q, k, v, None, scale),
+        lambda: attention_reference(q, k, v, None, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps=5)
+    b_ms, b_by = bound(*attention_fwd(B, H, S, d))
+    log(f"time {shape} fp32 no mask: flash_attn_fwd kernel {ms:.4f} ms (host "
+        f"{host_ms:.4f} ms a call), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; the kernel at {b_ms / ms * 100:.1f}% of it), library "
+        f"(scaled_dot_product_attention, no mask) {lib_ms:.4f} ms, kernel / library "
+        f"{ms / lib_ms:.2f}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, host_ms=host_ms)
 
 
 def phase_attention_backward():
@@ -1186,10 +1242,10 @@ def phase_main_path(data_root, card):
 
 
 def phase_card_vs_cpu(data_root, logdir, cfg_file=CFG_FILE, frames=96,
-                      what="CARL"):
+                      what="CARL", opts=()):
     """The first `frames` frames of one val video through the eval sweep in
     fp32 (USE_AMP off, TF32 off) on the card and on the CPU, from the same
-    checkpoint."""
+    checkpoint (the config with `opts`)."""
     from video_rep_learning_tpu_torch import evaluate as cli
     from video_rep_learning_tpu_torch.evaluation.embedding import \
         get_embeddings_dataset
@@ -1197,7 +1253,7 @@ def phase_card_vs_cpu(data_root, logdir, cfg_file=CFG_FILE, frames=96,
 
     cfg = cli.load_config(cli.parse_cli(
         ["--cfg_file", cfg_file, "--logdir", logdir, "--opts", "USE_AMP",
-         "False"])[0])
+         "False", *opts])[0])
     with open(os.path.join(data_root, "pouring", "val.pkl"), "rb") as f:
         entry = pickle.load(f)[0]
     video = np.load(os.path.join(data_root, "pouring", entry["video_file"]))[:frames]
@@ -1604,6 +1660,16 @@ def layer4_card_vs_cpu(cfg, cap, out, names):
 VIT_KERNELS = ("layernorm", "ln_gemm", "packed_attn", "vit_attention_block")
 
 
+def _check_vit_blocks(what, launches):
+    """A fully frozen ViT's launches, per chunk of 12 blocks: 1 final norm,
+    12 half-blocks, each with one attention and two GEMMs, and 12 LN2 + fc1
+    GEMMs."""
+    blocks = launches["vit_attention_block"]
+    if (blocks <= 0 or blocks != 12 * launches["layernorm"]
+            or launches["packed_attn"] != blocks or launches["ln_gemm"] != 3 * blocks):
+        raise AssertionError(f"{what}: ViT launches do not follow its blocks: {launches}")
+
+
 def phase_mvf_path(data_root, card):
     """`python -m video_rep_learning_tpu_torch.evaluate`'s function on
     configs_mvf/pouring_mvf.yml: a fully frozen ViT-B/8 at 224 px in bf16,
@@ -1638,12 +1704,7 @@ def phase_mvf_path(data_root, card):
     for name in VIT_KERNELS + ("flash_attn_fwd",):
         if launches[name] <= 0:
             raise AssertionError(f"the MV-Former path never launched {name}")
-    # per ViT chunk of 12 blocks: 1 final norm, 12 half-blocks, each with one
-    # attention and two GEMMs, and 12 LN2 + fc1 GEMMs
-    blocks = launches["vit_attention_block"]
-    if (blocks != 12 * launches["layernorm"] or launches["packed_attn"] != blocks
-            or launches["ln_gemm"] != 3 * blocks):
-        raise AssertionError(f"launch counts do not follow the ViT's blocks: {launches}")
+    _check_vit_blocks("MV-Former eval", launches)
     if len(EmbeddingCheck.seen) != 2:
         raise AssertionError("the embedding check did not run")
     for split, frames, norm_err in EmbeddingCheck.seen:
@@ -1973,10 +2034,7 @@ def _mvf_train_path(data_root, card):
         f"{json.dumps(launches)}")
     if trainer.start_epoch != 1:
         raise AssertionError("the second run did not resume from epoch 0")
-    blocks = launches["vit_attention_block"]
-    if (blocks <= 0 or blocks != 12 * launches["layernorm"]
-            or launches["packed_attn"] != blocks or launches["ln_gemm"] != 3 * blocks):
-        raise AssertionError(f"ViT launches do not follow its blocks: {launches}")
+    _check_vit_blocks("MV-Former training", launches)
     for name in ("crop_photometric", "flash_attn_fwd", "flash_attn_bwd"):
         if launches[name] <= 0:
             raise AssertionError(f"the MV-Former training path never launched {name}")
@@ -2610,6 +2668,413 @@ def phase_supervised(data_root, card, lens):
     return paths
 
 
+# Phase 16: late fusion over a ViT, the FineGym harness, mid-epoch resume
+LATE_CFGS = {k: os.path.join(REPO, "configs_mvf", f"ablate_dinoB8_{k}.yml")
+             for k in ("avg", "cls", "max")}
+# the ablations train on 13 Penn Action classes; the smoke swaps in the
+# synthetic Pouring set, as every other phase does
+LATE_DATA = ("DATASETS", "[pouring]", "PATH_TO_DATASET", "pouring")
+FG_CFG_FILE = os.path.join(REPO, "configs_mvf", "fg99_mvf.yml")
+FG_SPLITS = {"train": 20, "val": 6}  # videos; fraction 0.1 still makes a batch
+MID_SAVE_N, MID_STEPS = 2, 6
+
+
+def vit_launches(frames, chunk=40, depth=12):
+    """The fully frozen ViT's launches over `frames` frames in `chunk`-frame
+    chunks: a final norm, and 12 half-blocks each of one #5 (one #4, two
+    ln_gemm) and one #6 a chunk."""
+    chunks = -(-frames // chunk)
+    return {"layernorm": chunks, "vit_attention_block": depth * chunks,
+            "packed_attn": depth * chunks, "ln_gemm": 3 * depth * chunks}
+
+
+def late_cfg(kind, logdir, opts=()):
+    from video_rep_learning_tpu_torch import evaluate as cli
+
+    return cli.load_config(cli.parse_cli(
+        ["--cfg_file", LATE_CFGS[kind], "--logdir", logdir, "--opts",
+         *smoke_opts(["RNG_SEED", str(SEED), *LATE_DATA, *opts])])[0])
+
+
+def late_sweep(cfg, model, what, card):
+    """The warm eval sweep of the val split: frames/s."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.evaluation import get_embeddings_dataset
+
+    loader = cli.build_eval_loaders(cfg, "val")[0]
+    get_embeddings_dataset(cfg, model, loader, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = get_embeddings_dataset(cfg, model, loader, "cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    frames = sum(out["seq_lens"])
+    embs = np.concatenate(out["embs"])
+    if embs.shape != (frames, 128) or not np.isfinite(embs).all():
+        raise AssertionError(f"{what}: bad sweep embeddings {embs.shape}")
+    log(f"{what} embedding sweep (val, warm, bf16 ViT-B/8, {frames} frames of "
+        f"256x256 uint8 -> 224 px): {frames / dt:.1f} frames/s in {dt:.3f} s on {card}")
+    return frames / dt
+
+
+def late_avg_cli(data_root, card, lens):
+    """ablate_dinoB8_avg (late-spatial, SMART_FEATS 3,7,11 -> 2304 channels,
+    average pooled) through the train CLI for an epoch with a mid-epoch
+    checkpoint every MID_SAVE_N steps, then `--continue_train` for a second;
+    #1 and #3 once an encoder layer for each step, val batch and eval chunk
+    (#3 a step), the ViT's launches by its blocks, every `backbone.*`
+    bit-identical. Returns (launches, trainer)."""
+    from video_rep_learning_tpu_torch.models import build_model
+    from video_rep_learning_tpu_torch.train.cli import main as train_main
+
+    logdir = os.path.join(WORK, "late_avg_logs")
+
+    def argv(epochs, *flags):
+        return ["--workdir", data_root, "--logdir", logdir, "--cfg_file",
+                LATE_CFGS["avg"], "--device", "cuda", *flags, "--opts", *smoke_opts(
+                    ["TRAIN.MAX_EPOCHS", str(epochs), "LOGGING.REPORT_INTERVAL", "3",
+                     "RNG_SEED", str(SEED), "CHECKPOINT.SAVE_EVERY_N_ITERS",
+                     str(MID_SAVE_N), *LATE_DATA])]
+
+    EmbeddingCheck.seen = []
+    _reset_launches()
+    t0 = time.time()
+    first = train_main(argv(1))
+    ckpts = sorted(os.listdir(os.path.join(logdir, "checkpoints")))
+    if ckpts != ["checkpoint_epoch_00000.pth"]:
+        raise AssertionError(f"late avg: the epoch save left {ckpts}")
+    trainer = train_main(argv(2, "--continue_train", "--tempcfg"))
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    cfg = trainer.cfg
+    layers = cfg.MODEL.EMBEDDER_MODEL.NUM_LAYERS
+    steps = len(first.train_loader) + len(trainer.train_loader)
+    per_run = len(trainer.val_loader) + eval_chunks(cfg, lens)
+    want = {"flash_attn_fwd": layers * (steps + 2 * per_run),
+            "flash_attn_bwd": layers * steps, "crop_photometric": steps + 2 * len(
+                trainer.val_loader)}
+    got = {k: launches[k] for k in want}
+    log(f"late avg (configs_mvf/ablate_dinoB8_avg.yml: ViT-B/8 fully frozen, taps "
+        f"{trainer.model.spec.tap_blocks} -> {trainer.model.spec.out_channel} channels, "
+        f"{cfg.MODEL.EMBEDDER_MODEL.FLATTEN_METHOD}, {cfg.TRAIN.NUM_FRAMES} frames a "
+        f"view): two CLI runs (epoch 0 with a mid checkpoint every {MID_SAVE_N} steps, "
+        f"epoch 1 resumed at {trainer.start_epoch}) in {time.time() - t0:.2f} s; "
+        f"checkpoints {sorted(os.listdir(os.path.join(logdir, 'checkpoints')))}; "
+        f"launches {json.dumps(launches)}; #1 / #3 / #12 {json.dumps(got)} (expected "
+        f"{json.dumps(want)})")
+    _check_vit_blocks("late avg CLI", launches)
+    if trainer.start_epoch != 1 or got != want or len(EmbeddingCheck.seen) != 4:
+        raise AssertionError("the late avg runs did not resume, launched #1 / #3 / "
+                             "#12 the wrong number of times, or skipped the check")
+    if sorted(os.listdir(os.path.join(logdir, "checkpoints"))) != [
+            "checkpoint_epoch_00000.pth", "checkpoint_epoch_00001.pth"]:
+        raise AssertionError("late avg: mid checkpoints outlived the epoch save")
+    torch.manual_seed(cfg.RNG_SEED)
+    init = build_model(cfg, "cpu").state_dict()
+    trainable = {n for n, p in trainer.model.named_parameters() if p.requires_grad}
+    moved = vit = vit_moved = 0
+    for n, v in trainer.model.state_dict().items():
+        same = torch.equal(v.cpu(), init[n])
+        if n in trainable:
+            moved += not same
+        elif n.startswith("backbone."):
+            vit += 1
+            vit_moved += not same
+    log(f"late avg: {moved} of {len(trainable)} trainable tensors moved, {vit_moved} "
+        f"of {vit} backbone.* tensors moved")
+    if moved != len(trainable) or vit_moved or not vit:
+        raise AssertionError("the wrong late avg parameters moved")
+    return launches, trainer
+
+
+def late_step(kind, data_root, card):
+    """Warm steps of ablate_dinoB8_{kind} with their exact launches: the ViT
+    by its chunks, #1 and #3 once an encoder layer a step, #12 once; then a
+    profiled step. Returns (launches, trainer, ms a step)."""
+    from video_rep_learning_tpu_torch.train import Trainer
+
+    cfg = late_cfg(kind, os.path.join(WORK, f"late_{kind}_logs"))
+    cfg.PATH_TO_DATASET = os.path.join(data_root, cfg.PATH_TO_DATASET)
+    torch.manual_seed(SEED)
+    trainer = Trainer(cfg, no_eval=True, device="cuda")
+    _reset_launches()
+    batch, step_ms, losses = warm_steps(trainer, 2)
+    launches = _read_launches()
+    clips, views, T = batch["videos"].shape[:3]
+    layers = cfg.MODEL.EMBEDDER_MODEL.NUM_LAYERS
+    want = {k: 3 * n for k, n in vit_launches(views * T).items()}
+    want.update(flash_attn_fwd=3 * layers, flash_attn_bwd=3 * layers,
+                crop_photometric=3)
+    got = {k: launches[k] for k in want}
+    spec = trainer.model.spec
+    log(f"late {kind} train step (warm, LATE_TYPE {spec.late_type}, taps "
+        f"{spec.tap_blocks}, {spec.out_channel} channels, {spec.flatten_method}; "
+        f"{clips} clip x {views} views x {T} frames of 256x256 uint8 -> 224 px, bf16 "
+        f"ViT-B/8 in {spec.frames_per_batch}-frame chunks, H2D + #12 + ViT + late "
+        f"head + SCL + backward + Adam): {step_ms:.1f} ms/step, "
+        f"{clips / step_ms * 1e3:.3f} clips/s on {card}; losses {losses}; launches "
+        f"in 3 steps {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"late {kind}: launches {got}, expected {want}")
+    profile_train_step(trainer, batch, f"late {kind}", f"late_{kind}_step_trace.json",
+                       dict(OWN_KERNELS, flash_bwd_mma_kernel="flash_attn_bwd",
+                            crop_strip_kernel="crop_photometric"))
+    return launches, trainer, step_ms
+
+
+def late_cls_layout(trainer):
+    """A late-cls checkpoint holds the ViT under `backbone.*` (the
+    reference's bare timm model) and reloads strictly into a fresh model."""
+    from video_rep_learning_tpu_torch.models import (build_model, load_checkpoint,
+                                                     save_checkpoint)
+
+    logdir = os.path.join(WORK, "late_cls_logs")
+    path = save_checkpoint(trainer.model, logdir, 0)
+    state = torch.load(path, map_location="cpu", weights_only=False)["model_state"]
+    vit = [k for k in state if k.startswith("backbone.")]
+    wrapped = [k for k in vit if k.startswith("backbone.model.")]
+    fresh = build_model(trainer.cfg, "cuda")
+    load_checkpoint(fresh, logdir)
+    want = trainer.model.state_dict()
+    same = all(torch.equal(v, want[k]) for k, v in fresh.state_dict().items())
+    log(f"late cls checkpoint: {len(vit)} ViT tensors under backbone.* "
+        f"({len(wrapped)} under backbone.model.*), reloaded strictly, "
+        f"{'bit-identical' if same else 'DIFFERS'}")
+    if not vit or wrapped or not same:
+        raise AssertionError("the late-cls checkpoint's layout or reload is wrong")
+    return logdir
+
+
+def phase_late(data_root, card, lens):
+    """16a: the late-fusion ViT ablations (see the module docstring).
+    Returns ({path: launches}, numbers)."""
+    from video_rep_learning_tpu_torch.evaluation import TASK_REGISTRY
+
+    TASK_REGISTRY["embedding_check"] = EmbeddingCheck
+    paths, nums = {}, {}
+    paths["late avg CLI"], avg = late_avg_cli(data_root, card, lens)
+    nums["avg_sweep_fps"] = late_sweep(avg.cfg, avg.model, "late avg", card)
+    avg_logdir = avg.cfg.LOGDIR
+    del avg
+    torch.cuda.empty_cache()
+    for kind in ("cls", "max"):
+        paths[f"late {kind} steps"], trainer, nums[f"{kind}_step_ms"] = late_step(
+            kind, data_root, card)
+        if kind == "cls":
+            cls_logdir = late_cls_layout(trainer)
+            trainer.model.eval()
+            nums["cls_sweep_fps"] = late_sweep(trainer.cfg, trainer.model, "late cls",
+                                               card)
+        del trainer
+        torch.cuda.empty_cache()
+    phase_card_vs_cpu(data_root, cls_logdir, LATE_CFGS["cls"], MVF_CARD_VS_CPU,
+                      "late cls ViT", LATE_DATA)
+    phase_card_vs_cpu(data_root, avg_logdir, LATE_CFGS["avg"], MVF_CARD_VS_CPU,
+                      "late-spatial avg ViT", LATE_DATA)
+    return paths, nums
+
+
+def make_gym99_set():
+    """A synthetic set in the gym99 layout (`gym99_train_v1.0.pkl`,
+    `gym99_val.pkl`, npy videos): FG_SPLITS videos of 60-150 frames at 256
+    px, labels in 0..98 with a tenth of the frames at -1."""
+    from video_rep_learning_tpu_torch.data.decode import encode_video
+
+    root = os.path.join(WORK, "data", "finegym")
+    os.makedirs(os.path.join(root, "videos"), exist_ok=True)
+    rng = np.random.RandomState(SEED)
+    lens = {}
+    for split, n in FG_SPLITS.items():
+        entries = []
+        for i in range(n):
+            seq_len = int(rng.randint(60, 151))
+            base = rng.randint(0, 256, (1, 1, 1, 3))
+            frames = np.clip(base + rng.randint(-40, 41, (seq_len, 256, 256, 3)), 0,
+                             255).astype(np.uint8)
+            rel = os.path.join("videos", f"{split}_{i}.npy")
+            encode_video(os.path.join(root, rel), frames)
+            labels = rng.randint(0, 99, seq_len).astype(np.int64)
+            labels[rng.rand(seq_len) < 0.1] = -1
+            entries.append({"id": i, "name": f"gym/{split}_{i}", "video_file": rel,
+                            "frame_label": labels, "seq_len": seq_len})
+        with open(os.path.join(root, "gym99_train_v1.0.pkl" if split == "train"
+                               else "gym99_val.pkl"), "wb") as f:
+            pickle.dump(entries, f)
+        lens[split] = [e["seq_len"] for e in entries]
+    log(f"synthetic gym99 set: {FG_SPLITS} videos at 256x256, lengths {lens}")
+    return os.path.dirname(root), lens
+
+
+@contextmanager
+def timing(module, name, spans):
+    """Time every call of `module.name` (synchronised), appending seconds to
+    `spans`; restored after the block."""
+    real = getattr(module, name)
+
+    def timed_call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans.append(time.time() - t0)
+        return out
+
+    setattr(module, name, timed_call)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def phase_finegym(card):
+    """16b: fg99_mvf.yml at full width over a synthetic gym99 set: one epoch
+    through the train CLI (its evaluation runs the harness), then the
+    harness through `python -m video_rep_learning_tpu_torch.evaluate_finegym`'s
+    function at the config's own probe settings. Returns (launches,
+    numbers)."""
+    from video_rep_learning_tpu_torch.evaluate_finegym import main as fg_main
+    from video_rep_learning_tpu_torch.evaluation import finegym
+    from video_rep_learning_tpu_torch.train.cli import main as train_main
+
+    data_root, lens = make_gym99_set()
+    logdir = os.path.join(WORK, "fg99_logs")
+    opts = ["DATA.NUM_WORKERS", "4", "RNG_SEED", str(SEED)]
+    _reset_launches()
+    t0 = time.time()
+    trainer = train_main(["--workdir", data_root, "--logdir", logdir, "--cfg_file",
+                          FG_CFG_FILE, "--device", "cuda", "--opts",
+                          "TRAIN.MAX_EPOCHS", "1", *opts])
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    cfg = trainer.cfg
+    steps = len(trainer.train_loader)
+    log(f"fg99_mvf train CLI (ViT-B/8 fully frozen, taps "
+        f"{trainer.model.spec.tap_blocks}, {cfg.MODEL.EMBEDDER_MODEL.SMART_TOKENS} "
+        f"LSTP tokens, embedding {cfg.MODEL.EMBEDDER_MODEL.EMBEDDING_SIZE}; {steps} "
+        f"steps of 2 views x {cfg.TRAIN.NUM_FRAMES} frames, val, the harness) in "
+        f"{time.time() - t0:.2f} s; launches {json.dumps(launches)}")
+    _check_vit_blocks("fg99 train CLI", launches)
+    if launches["flash_attn_bwd"] != cfg.MODEL.EMBEDDER_MODEL.NUM_LAYERS * steps:
+        raise AssertionError("fg99: #3 did not launch once an encoder layer a step")
+    del trainer
+    torch.cuda.empty_cache()
+
+    spans = {"dump": [], "probe": []}
+    _reset_launches()
+    with timing(finegym, "dump_embeddings_dataset", spans["dump"]), \
+            timing(finegym, "train_linear_probe", spans["probe"]):
+        accs = fg_main(["--workdir", data_root, "--logdir", logdir, "--cfg_file",
+                        FG_CFG_FILE, "--device", "cuda", "--opts", *opts])
+    eval_launches = _read_launches()
+    _add(launches, eval_launches)
+    frames = {s: sum(n) for s, n in lens.items()}
+    ok = sorted(accs) == sorted(cfg.EVAL.CLASSIFICATION_FRACTIONS) and all(
+        np.isfinite(a) and 0.0 <= a <= 100.0 for a in accs.values())
+    for split, n in FG_SPLITS.items():
+        d = os.path.join(logdir, f"finegym_eval_{split}set")
+        files = sorted(os.listdir(d))
+        widths = set()
+        for name in files:
+            with open(os.path.join(d, name), "rb") as f:
+                rec = pickle.load(f)
+            widths.add(rec["embs"].shape[1])
+            ok &= bool(np.isfinite(rec["embs"]).all()) and bool((rec["labels"] >= 0).all())
+        ok &= len(files) == n and widths == {256}
+        log(f"fg99 harness {split}: {len(files)} pickles, embs width {sorted(widths)}")
+    fps = {s: frames[s] / t for s, t in zip(FG_SPLITS, spans["dump"])}
+    log(f"fg99 harness (evaluate_finegym, EVAL.FRAMES_PER_BATCH "
+        f"{cfg.EVAL.FRAMES_PER_BATCH}, probe LR {cfg.EVAL.CLASSIFICATION_LR} over "
+        f"{cfg.EVAL.CLASSIFICATION_EPOCHS} epochs): accuracies {json.dumps(accs)}; "
+        f"sweep {json.dumps({s: round(v, 1) for s, v in fps.items()})} frames/s "
+        f"({json.dumps(frames)} frames in {[round(t, 3) for t in spans['dump']]} s); "
+        f"probe {[round(t, 3) for t in spans['probe']]} s a fraction; launches "
+        f"{json.dumps(eval_launches)} on {card}")
+    _check_vit_blocks("fg99 harness", eval_launches)
+    if not ok or eval_launches["flash_attn_fwd"] <= 0:
+        raise AssertionError("the FineGym harness failed its checks")
+    return launches, {"sweep_fps": fps, "probe_s": spans["probe"], "accs": accs}
+
+
+class _Preempted(Exception):
+    pass
+
+
+def phase_mid_resume(data_root):
+    """16c: pouring_mvf.yml (fully frozen ViT-B/8, VRL_FUSED_SCL=1) for one
+    epoch of MID_STEPS steps with a mid checkpoint every MID_SAVE_N steps,
+    uninterrupted; then again, stopped after the second mid save and resumed
+    by a new trainer. Every trainable tensor, buffer and optimizer moment
+    must be bit-identical. Returns the launches of the three runs."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.train import Trainer
+    from video_rep_learning_tpu_torch.train import checkpoint as ckpt
+    from video_rep_learning_tpu_torch.train import trainer as trainer_mod
+
+    seed_path, _ = seeded_mvf_checkpoint(cli.load_config(cli.parse_cli(
+        ["--cfg_file", MVF_CFG_FILE])[0]))
+
+    def make(logdir):
+        cfg = cli.load_config(cli.parse_cli(
+            ["--cfg_file", MVF_CFG_FILE, "--logdir", logdir, "--opts", *smoke_opts(
+                ["RNG_SEED", str(SEED), "TRAIN.MAX_EPOCHS", "1",
+                 "CHECKPOINT.SAVE_EVERY_N_ITERS", str(MID_SAVE_N),
+                 "MODEL.PRETRAINED_CHECKPOINT", seed_path])])[0])
+        cfg.PATH_TO_DATASET = os.path.join(data_root, cfg.PATH_TO_DATASET)
+        shutil.rmtree(logdir, ignore_errors=True)
+        trainer = Trainer(cfg, no_eval=True, device="cuda")
+        trainer.init_state()
+        return trainer
+
+    real_save = ckpt.save_mid_checkpoint
+    cut_dir = os.path.join(WORK, "mid_cut_logs")
+
+    def save_or_stop(logdir, model, optimizer, epoch, next_iter, cfg=None):
+        path = real_save(logdir, model, optimizer, epoch, next_iter, cfg)
+        if logdir == cut_dir and next_iter == 2 * MID_SAVE_N:
+            raise _Preempted
+        return path
+
+    _reset_launches()
+    trainer_mod.save_mid_checkpoint = save_or_stop
+    try:
+        with env_vars(VRL_FUSED_SCL="1"):
+            once = make(os.path.join(WORK, "mid_once_logs"))
+            once.fit()
+            cut = make(cut_dir)
+            try:
+                cut.fit()
+                raise AssertionError("the preempted run was not stopped")
+            except _Preempted:
+                pass
+            resumed = Trainer(cut.cfg, no_eval=True, device="cuda")
+            resumed.init_state()
+            start = (resumed.start_epoch, resumed.start_iter)
+            resumed.fit()
+    finally:
+        trainer_mod.save_mid_checkpoint = real_save
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    want, got = once.model.state_dict(), resumed.model.state_dict()
+    differ = [k for k, v in got.items() if not torch.equal(v, want[k])]
+    differ += [f"optimizer.{w}.{n}" for w in ("mu", "nu")
+               for n, a, b in zip(once.optimizer.names, getattr(once.optimizer, w),
+                                  getattr(resumed.optimizer, w))
+               if not torch.equal(a, b)]
+    steps = len(once.train_loader)
+    trainable = sum(p.requires_grad for p in once.model.parameters())
+    log(f"mid-epoch resume (pouring_mvf, VRL_FUSED_SCL=1, {steps} steps, a mid "
+        f"checkpoint every {MID_SAVE_N}): stopped after step {2 * MID_SAVE_N}, "
+        f"resumed at (epoch, iter) {start}; optimizer steps {once.optimizer.count} "
+        f"vs {resumed.optimizer.count}; {len(got)} tensors ({trainable} trainable) "
+        f"and {2 * len(once.optimizer.names)} optimizer moments: "
+        f"{'bit-identical' if not differ else 'DIFFER: ' + ', '.join(differ[:12])}; "
+        f"launches {json.dumps(launches)}")
+    if (steps != MID_STEPS or start != (0, 2 * MID_SAVE_N) or differ
+            or resumed.optimizer.count != once.optimizer.count):
+        raise AssertionError("the resumed run is not the uninterrupted one")
+    return launches
+
+
 JAX_OPS = "video_rep_learning_tpu/ops/"
 SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
     "flash_attn_fwd": ("csrc/flash_attn_fwd.cu", JAX_OPS + "attention_pallas.py:79"),
@@ -2646,9 +3111,10 @@ def main():
     card = phase_environment()
     ptxas, sass = phase_build()
     data_root, lens = make_synthetic_set()
-    fwd_err = phase_kernel_vs_plain(lens)
+    fwd_err, fg_attn = phase_kernel_vs_plain(lens)
     entries = phase_attention_backward()
     entries["flash_attn_fwd"]["max_abs_err"] = fwd_err
+    entries["flash_attn_fwd"]["at_" + "x".join(map(str, FG_ATTN_SHAPE))] = fg_attn
     entries.update(phase_augment())
     entries.update(phase_vit_kernels())
     phase_vit_grads()
@@ -2693,6 +3159,19 @@ def main():
         raise AssertionError(f"a supervised path launched a micro-benchmark kernel: "
                              f"{strays}")
     log("supervised paths: none of " + ", ".join(TOOL_ENTRIES) + " launched")
+    torch.cuda.empty_cache()
+    new_launches, late_nums = phase_late(data_root, card, lens)
+    torch.cuda.empty_cache()
+    new_launches["fg99 train + harness"], fg_nums = phase_finegym(card)
+    torch.cuda.empty_cache()
+    new_launches["mid-epoch resume"] = phase_mid_resume(data_root)
+    strays = {(path, k): n for path, counts in new_launches.items()
+              for k, n in counts.items() if k in TOOL_ENTRIES and n}
+    if strays:
+        raise AssertionError(f"a phase 16 path launched a micro-benchmark kernel: "
+                             f"{strays}")
+    log("phase 16 paths: none of " + ", ".join(TOOL_ENTRIES) + " launched")
+    log("phase 16 numbers: " + json.dumps({"late": late_nums, "finegym": fg_nums}))
     # the kernels as built (PTXAS_KERNELS): registers, stack, spills; 13g's SASS
     for name, built in ptxas.items():
         entries[name]["ptxas"] = built
@@ -2727,6 +3206,7 @@ def main():
             "mvf_train_launches": mvf_train_launches[name],
             "partial_train_launches": partial_launches.get(name, 0),
             "supervised_launches": {p: c[name] for p, c in sup_launches.items()},
+            "phase16_launches": {p: c[name] for p, c in new_launches.items()},
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],

@@ -8,7 +8,9 @@ their plain PyTorch versions; the ViT kernels' gradients (the kernel
 forward, the plain backward chunked over frames) against autograd of the
 plain versions; the JAX package's MLP gates reaching their kernels; and the
 wrappers' refusal of what their kernels do not take, and of a launch that
-would drop a gradient. These need a CUDA card and skip elsewhere; on the GPU machine run
+would drop a gradient; #1 at the FineGym eval chunk's (1, 8, 12000, 32),
+a small late-fusion ViT's embeddings and the FineGym probe, card vs CPU.
+These need a CUDA card and skip elsewhere; on the GPU machine run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -1002,3 +1004,112 @@ def test_tcc_transformer_step_matches_cpu(cuda):
     for n, want in gb.items():
         err = (ga[n] - want).abs().max().item()
         assert err <= 2e-3 * max(want.abs().max().item(), floor), n
+
+
+def test_flash_attn_fwd_at_the_finegym_chunk_matches_plain(cuda):
+    """#1 at fg99_mvf.yml's eval chunk (2000 frames x 6 LSTP tokens: (1, 8,
+    12000, 32), unmasked), the longest sequence any path gives it, against
+    `attention_reference` in fp32 (4.6 GB of scores); fp32 and bf16 as
+    TOL states; a second launch bit for bit."""
+    g = torch.Generator().manual_seed(1)
+    shape = (1, 8, 12000, 32)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(shape, generator=g).to(cuda, dtype) for _ in range(3))
+        out, lse = attention.flash_attention_fwd(q, k, v, None, 32 ** -0.5)
+        again = attention.flash_attention_fwd(q, k, v, None, 32 ** -0.5)
+        ref, ref_lse = attention.attention_reference(q.float(), k.float(), v.float(),
+                                                     None, 32 ** -0.5)
+        out_tol, lse_tol = TOL[dtype]
+        assert (out.float() - ref).abs().max().item() <= out_tol
+        assert (lse - ref_lse).abs().max().item() <= lse_tol
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        del ref, ref_lse
+        torch.cuda.empty_cache()
+
+
+def _tiny_late_vit(monkeypatch, late_type):
+    """A late-fusion config over a 2-block test ViT (128-d in 4 heads, patch
+    8 at 32 px: widths the GEMM kernel takes), fp32: LATE_TYPE cls, or
+    spatial over taps 0 and 1, average pooled."""
+    from video_rep_learning_tpu_torch.config import get_cfg
+    from video_rep_learning_tpu_torch.models import vit
+
+    monkeypatch.setitem(vit.VIT_SPECS, "vit_cuda_late", vit.ViTSpec(128, 2, 4, 8, img_size=32))
+    cfg = get_cfg()
+    cfg.USE_AMP, cfg.IMAGE_SIZE, cfg.TRAIN.NUM_FRAMES = False, 32, 12
+    cfg.MODEL.BASE_MODEL.NETWORK = "TIMM-vit_cuda_late"
+    cfg.MODEL.BASE_MODEL.FRAMES_PER_BATCH = 8
+    e = cfg.MODEL.EMBEDDER_MODEL
+    e.FUSION_TYPE, e.LATE_TYPE, e.SMART_FEATS = "late", late_type, "0,1"
+    e.FLATTEN_METHOD = "avg_pool" if late_type == "spatial" else "max_pool"
+    e.NUM_LAYERS, e.HIDDEN_SIZE, e.NUM_HEADS, e.D_FF = 2, 64, 2, 64
+    e.FC_LAYERS, e.CAPACITY_SCALAR, e.EMBEDDING_SIZE = [[32, True]], 1, 16
+    return cfg
+
+
+@pytest.mark.parametrize("late_type", ["cls", "spatial"])
+def test_late_vit_embeddings_match_cpu(cuda, monkeypatch, late_type):
+    """Late fusion over a small ViT, fp32 (TF32 off): 12 frames of 32 px on
+    the card through the ViT kernels and #1 give the CPU's unit-norm
+    embeddings within 1e-4 (chip_smoke.py holds the full-width ViT-B/8 at
+    CARD_VS_CPU_TOL)."""
+    from video_rep_learning_tpu_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _tiny_late_vit(monkeypatch, late_type)
+    x = torch.rand(1, 12, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        torch.manual_seed(0)
+        model = build_model(cfg, dev)
+        before = (attention.flash_attention_fwd.launches,
+                  vit_block.vit_attention_block.launches)
+        with torch.inference_mode():
+            out[dev] = model(x.to(dev), 12).cpu()
+        launched = (attention.flash_attention_fwd.launches - before[0],
+                    vit_block.vit_attention_block.launches - before[1])
+        # 2 encoder layers; 2 blocks x 2 chunks of the ViT
+        assert launched == ((2, 4) if dev == "cuda" else (0, 0))
+    assert out["cuda"].shape == (1, 12, 16)
+    assert (out["cuda"] - out["cpu"]).abs().max().item() <= 1e-4
+
+
+def test_finegym_probe_matches_cpu(cuda, tmp_path):
+    """The FineGym probe (SGD momentum, cosine LR, 10-video batches) on the
+    card against the CPU from the same initial weights, fp32, TF32 off:
+    equal accuracy, weights within 1e-5 of their largest value."""
+    import pickle
+
+    import numpy as np
+
+    from video_rep_learning_tpu_torch.config import get_cfg
+    from video_rep_learning_tpu_torch.evaluation import finegym
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    centers = rng.randn(5, 16)
+    files = {}
+    for split, n in (("train", 20), ("val", 6)):
+        files[split] = []
+        for i in range(n):
+            labels = rng.randint(-1, 5, rng.randint(20, 60))
+            embs = (centers[labels] + rng.randn(len(labels), 16)).astype(np.float32)
+            path = str(tmp_path / f"{split}_{i}.pkl")
+            with open(path, "wb") as f:
+                pickle.dump({"embs": embs, "labels": labels, "name": f"{split}_{i}"}, f)
+            files[split].append(path)
+    cfg = get_cfg()
+    cfg.EVAL.CLASS_NUM, cfg.EVAL.CLASSIFICATION_LR, cfg.EVAL.CLASSIFICATION_EPOCHS = 5, 1.0, 5
+    cfg.MODEL.EMBEDDER_MODEL.EMBEDDING_SIZE = 16
+    init = (rng.uniform(-0.25, 0.25, (5, 16)), rng.uniform(-0.25, 0.25, 5))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        out = {}
+        acc = finegym.train_linear_probe(cfg, files["train"], files["val"], 1.0, 0, None,
+                                         dev, init=init, probe_out=out)
+        assert out["probe"].weight.device.type == dev
+        got[dev] = acc, out["probe"].weight.detach().cpu(), out["probe"].bias.detach().cpu()
+    assert got["cuda"][0] == got["cpu"][0]
+    for a, b in zip(got["cuda"][1:], got["cpu"][1:]):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()

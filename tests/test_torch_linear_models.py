@@ -119,10 +119,20 @@ def test_remat_over_resnet_tail_raises():
 
 
 def test_mid_epoch_checkpoints_raise():
+    """Mid-epoch checkpoints no longer raise (ROADMAP queue 1 item 5 is
+    ported, tests/test_torch_mid_checkpoint.py); what still raises is a
+    FineGym harness across processes, which waits for item 6."""
+    from video_rep_learning_tpu_torch.evaluation import finegym
+
     cfg = get_cfg()
     cfg.CHECKPOINT.SAVE_EVERY_N_ITERS = 10
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        Trainer(cfg, build_loaders=False, device="cpu")
+    tr = Trainer(cfg, build_loaders=False, device="cpu")
+    assert tr.start_iter == 0 and tr.cfg.CHECKPOINT.SAVE_EVERY_N_ITERS == 10
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.distributed, "is_initialized", lambda: True)
+        mp.setattr(torch.distributed, "get_world_size", lambda: 2)
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+            finegym.train_linear_probe(cfg, [], [], 1.0, 0, None, "cpu")
 
 
 def test_packed_eval_sweep_raises():

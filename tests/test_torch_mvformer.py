@@ -284,7 +284,11 @@ def test_unported_vit_wirings_raise(test_vit):
     # a partially frozen ViT builds now (tests/test_torch_vit_partial.py)
     partial = build_model(small_mvf_cfg(port_config, ["MODEL.BASE_MODEL.LAYER", "1"]))
     assert isinstance(partial.res_finetune, port_vit.ViTBackEnd)
-    for opts, what in ((["MODEL.EMBEDDER_MODEL.FUSION_TYPE", "late"], "late fusion"),
+    # late fusion over a ViT builds too (tests/test_torch_late_vit.py)
+    late = build_model(small_mvf_cfg(port_config, ["MODEL.EMBEDDER_MODEL.FUSION_TYPE",
+                                                   "late"]))
+    assert late.spec.fusion_type == "late" and late.spec.late_type == "cls"
+    for opts, what in ((["MODEL.EMBEDDER_TYPE", "conv"], "EMBEDDER_TYPE conv"),
                        (["MODEL.QUANTIZE_BACKBONE", "True"], "QUANTIZE_BACKBONE"),
                        (["MODEL.TRAIN_BASE", "train_all"], "train_all")):
         with pytest.raises(NotImplementedError, match=what):

@@ -9,7 +9,10 @@ supervised augmentation, train_all) and its NUM_CONTEXTS 2 evaluation,
 then an MV-Former evaluation (`configs_mvf/pouring_mvf.yml`
 with a small test ViT), one MV-Former training step, and one step of the
 same model frozen up to block 1 of 2 under MODEL.REMAT (the back end
-trains, the front stays)."""
+trains, the front stays), the late-fusion ViT ablations' evaluation
+(`configs_mvf/ablate_dinoB8_{max,cls}.yml` on the small ViT), and the
+FineGym harness (`configs_mvf/fg99_mvf.yml` on a tiny gym99-format set:
+embedding pickles and the linear probe)."""
 
 import os
 import subprocess
@@ -141,10 +144,62 @@ SCRIPT = textwrap.dedent("""
                if n.startswith("backbone."))
     assert not torch.equal(state["res_finetune.blocks.1.mlp.fc1.weight"],
                            before["res_finetune.blocks.1.mlp.fc1.weight"])
+    late_metrics = {}
+    for kind in ("max", "cls"):
+        late = get_cfg()
+        load_yaml_into(late, f"configs_mvf/ablate_dinoB8_{kind}.yml")
+        late.DATASETS, late.PATH_TO_DATASET = ["pouring"], sys.argv[1]
+        late.IMAGE_SIZE, late.DATA.NUM_WORKERS = 32, 0
+        late.EVAL.TASKS = ["kendalls_tau", "retrieval"]
+        late.MODEL.BASE_MODEL.NETWORK = "TIMM-vit_test_64_d2"
+        e = late.MODEL.EMBEDDER_MODEL
+        e.SMART_FEATS, e.NUM_LAYERS, e.FC_LAYERS, e.CAPACITY_SCALAR = "0,1", 1, [[32, True]], 1
+        e.HIDDEN_SIZE, e.D_FF = 32, 64
+        model = build_model(late, "cpu")
+        assert model.spec.fusion_type == "late"
+        iterator_tasks, tasks = get_tasks(late)
+        late_metrics[kind] = evaluate_once(
+            late, model, build_eval_loaders(late, "train"),
+            build_eval_loaders(late, "val"), iterator_tasks, tasks, 0, None, "cpu")
+        assert all(np.isfinite(v["pouring"]) for v in late_metrics[kind].values())
+
+    import os, pickle
+    from video_rep_learning_tpu_torch.data.decode import encode_video
+    from video_rep_learning_tpu_torch.evaluation import finegym
+    fg_root = sys.argv[2]
+    os.makedirs(os.path.join(fg_root, "videos"))
+    rng = np.random.RandomState(0)
+    for split, n in (("train", 10), ("val", 2)):
+        entries = []
+        for i in range(n):
+            rel = os.path.join("videos", f"{split}_{i}.npy")
+            encode_video(os.path.join(fg_root, rel),
+                         rng.randint(0, 255, (12, 40, 40, 3)).astype(np.uint8))
+            entries.append({"id": i, "name": f"{split}_{i}", "video_file": rel,
+                            "frame_label": rng.randint(-1, 99, 12), "seq_len": 12})
+        name = "gym99_train_v1.0.pkl" if split == "train" else "gym99_val.pkl"
+        with open(os.path.join(fg_root, name), "wb") as f:
+            pickle.dump(entries, f)
+    fg = get_cfg()
+    load_yaml_into(fg, "configs_mvf/fg99_mvf.yml")
+    fg.PATH_TO_DATASET, fg.LOGDIR = fg_root, os.path.join(fg_root, "logs")
+    fg.IMAGE_SIZE, fg.DATA.NUM_WORKERS, fg.USE_AMP = 32, 0, False
+    fg.EVAL.CLASSIFICATION_EPOCHS, fg.EVAL.FRAMES_PER_BATCH = 2, 16
+    fg.MODEL.BASE_MODEL.NETWORK = "TIMM-vit_test_64"
+    e = fg.MODEL.EMBEDDER_MODEL
+    e.SMART_FEATS, e.NUM_LAYERS, e.FC_LAYERS, e.CAPACITY_SCALAR = "0", 1, [[32, True]], 1
+    e.HIDDEN_SIZE, e.D_FF, e.SMART_POOL_CHANNELS = 32, 64, 16
+    fg_accs = finegym.evaluate_loaders(
+        fg, build_model(fg, "cpu"), build_eval_loaders(fg, "train")[0],
+        build_eval_loaders(fg, "val")[0], 0, None, "cpu")
+    assert sorted(fg_accs) == [0.1, 0.5, 1.0], fg_accs
+    assert len(os.listdir(os.path.join(fg.LOGDIR, "finegym_eval_trainset"))) == 10
+
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                     and m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
-    print("NO_JAX_OK", metrics, tcc_metrics, mvf_metrics, mvf_loss, part_loss)
+    print("NO_JAX_OK", metrics, tcc_metrics, mvf_metrics, mvf_loss, part_loss,
+          late_metrics, fg_accs)
 """)
 
 
@@ -155,7 +210,8 @@ def test_port_runs_without_jax_flax_sklearn(tmp_path):
          "--out", data, "--num_train", "3", "--num_val", "3",
          "--min_len", "20", "--max_len", "30", "--size", "40"],
         check=True, cwd=REPO, stdout=subprocess.DEVNULL)
-    res = subprocess.run([sys.executable, "-c", SCRIPT, data], cwd=REPO,
+    res = subprocess.run([sys.executable, "-c", SCRIPT, data, str(tmp_path / "gym")],
+                         cwd=REPO,
                          env=dict(os.environ, OMP_NUM_THREADS="1"),
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]

@@ -6,10 +6,12 @@ class names, keeps its own copies of the backend-neutral modules (`config`,
 each Pallas kernel on the ported paths with a kernel written by hand for
 Hopper (`csrc/`, built with nvcc at first use).
 
-Ported so far: the CARL embedding (serving) path, from uint8 frames to
-L2-normalised per-frame embeddings and the downstream eval tasks
-(`python -m video_rep_learning_tpu_torch.evaluate`), and CARL SCL training
-(`python -m video_rep_learning_tpu_torch.train`).
+Ported so far: the embedding (serving) path of every shipped config, from
+uint8 frames to L2-normalised per-frame embeddings and the downstream eval
+tasks or the FineGym harness (`python -m video_rep_learning_tpu_torch.evaluate`,
+`.evaluate_finegym`), and training with SCL, TCC, TCN or classification
+with epoch and mid-epoch checkpoints (`python -m
+video_rep_learning_tpu_torch.train`), in a single process.
 """
 
 __version__ = "0.2.0"

@@ -7,7 +7,11 @@ evaluation once.
         [--device cuda] [--opts KEY VALUE ...]
 
 The flags are the root `evaluate.py`'s, plus `--device` (default cuda). The
-port's counterpart of that script; single-process for now.
+port's counterpart of that script; single-process for now. A FineGym config
+(DATASETS[0] finegym) runs the FineGym harness (`evaluation/finegym.py`:
+per-video embedding pickles, then the linear probe per fraction) in place of
+the embedding tasks; `python -m video_rep_learning_tpu_torch.evaluate_finegym`
+is the same entry point under the reference's name.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 
 from . import logging_utils
 from .data import construct_dataloader
-from .evaluation import get_tasks
+from .evaluation import finegym, get_tasks
 from .evaluation.evaluate import evaluate_once
 from .models import build_model, load_checkpoint
 from .parser import load_config, parse_args, setup_train_dir
@@ -32,9 +36,7 @@ logger = logging_utils.get_logger(__name__)
 
 def build_eval_loaders(cfg, split: str):
     """The embedding loaders of `construct_dataloader` (one full-video sweep
-    loader per dataset)."""
-    if cfg.DATASETS[0] == "finegym":
-        raise NotImplementedError("the FineGym harness comes in a later slice")
+    loader per dataset; FineGym's over its train or val index)."""
     return construct_dataloader(cfg, split)[1]
 
 
@@ -64,12 +66,17 @@ def main(argv=None):
     epoch = load_checkpoint(model, cfg.LOGDIR)
     train_loaders = build_eval_loaders(cfg, "train")
     val_loaders = build_eval_loaders(cfg, "val")
-    iterator_tasks, embedding_tasks = get_tasks(cfg)
 
     t0 = time.time()
-    metrics = evaluate_once(cfg, model, train_loaders, val_loaders,
-                            iterator_tasks, embedding_tasks, epoch,
-                            summary_writer, device)
+    if cfg.DATASETS[0] == "finegym":
+        metrics = finegym.evaluate_loaders(cfg, model, train_loaders[0],
+                                           val_loaders[0], epoch, summary_writer,
+                                           device)
+    else:
+        iterator_tasks, embedding_tasks = get_tasks(cfg)
+        metrics = evaluate_once(cfg, model, train_loaders, val_loaders,
+                                iterator_tasks, embedding_tasks, epoch,
+                                summary_writer, device)
     print("evaluate_once done in (m): " + str((time.time() - t0) / 60.0))
     summary_writer.close()
     return metrics

@@ -2,7 +2,8 @@
 
 Counterpart of `video_rep_learning_tpu/evaluation/__init__.py`. Neither
 importing this package nor running its four tasks needs JAX or sklearn
-(the linear probes are `linear_models.py`'s).
+(the linear probes are `linear_models.py`'s). FineGym runs the harness of
+`finegym.py` in place of the tasks.
 """
 
 from __future__ import annotations

@@ -5,6 +5,8 @@ every embedding task, log `metrics/{dataset}_{task}` and the
 Counterpart of `video_rep_learning_tpu/evaluation/evaluate.py::evaluate_once`
 with the same log lines (`read_results.py` greps them). The model carries its
 weights, so there is no `variables` argument; `device` is where it runs.
+A FineGym run (DATASETS[0] finegym) goes to the FineGym harness
+(`evaluation/finegym.py`) instead, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -55,13 +57,16 @@ def evaluate_once(cfg, model, train_emb_loaders, val_emb_loaders,
 
 
 def make_trainer_evaluate_fn(summary_writer):
-    """Adapter for `Trainer.fit(evaluate_fn=...)`: runs `evaluate_once` on
-    the trainer's model and embedding loaders (`train.py:327-334`)."""
+    """Adapter for `Trainer.fit(evaluate_fn=...)`: runs `evaluate_once` (or
+    the FineGym harness) on the trainer's model and embedding loaders
+    (`train.py:327-334`)."""
     from . import get_tasks
 
     def fn(trainer, epoch):
         if trainer.cfg.DATASETS[0] == "finegym":
-            raise NotImplementedError("the FineGym harness comes in a later slice")
+            from .finegym import evaluate_once as fg_evaluate_once
+
+            return fg_evaluate_once(trainer, epoch, summary_writer)
         iterator_tasks, embedding_tasks = get_tasks(trainer.cfg)
         trainer.model.eval()
         return evaluate_once(trainer.cfg, trainer.model, trainer.train_emb_loader,

@@ -1,6 +1,6 @@
-"""Model factory and modules of the port: CARL (ResNet + late transformer,
-or the conv / vanilla embedders of TCC and TCN) and MV-Former (fully or
-partially frozen ViT or ResNet + the multi-entity head)."""
+"""Model factory and modules of the port: CARL (ResNet or ViT + late
+transformer, or the conv / vanilla embedders of TCC and TCN) and MV-Former
+(fully or partially frozen ViT or ResNet + the multi-entity head)."""
 
 from .carl import (CARLModel, ModelSpec, build_model, resolve_model_spec,  # noqa: F401
                    set_trainable)

@@ -1,14 +1,15 @@
 """The CARL / MV-Former model: frame backbone -> temporal fusion head ->
 (projection | classifier), and the config resolution that wires it.
 
-Counterpart of `video_rep_learning_tpu/models/carl.py` for two families: the
-ResNet backbone with the `late` transformer head (CARL), and the `smart`
+Counterpart of `video_rep_learning_tpu/models/carl.py`: the `late`
+transformer head (CARL) over a ResNet or a timm ViT, and the `smart`
 multi-entity head (MV-Former) over a fully or partially frozen timm ViT or
 a ResNet.
 Module names follow the reference `TransformerModel` state dict
 (`backbone`, `backbone.model` for a ViT, `res_finetune`, `embed`,
 `ssl_projection`, `classifier`, `cls_res_res`), so its checkpoints load
-strictly.
+strictly; a late-cls ViT's reference dict holds the bare timm model under
+`backbone.*`, which `models/weights.py` maps onto `backbone.model.*`.
 
 - The frozen trunk runs without grad, in eval-mode BN, in chunks of
   MODEL.BASE_MODEL.FRAMES_PER_BATCH frames, each at its exact size (with
@@ -32,8 +33,13 @@ strictly.
   TCN configs) take DATA.NUM_CONTEXTS frames a step: the conv path runs the
   ResNet through layer3 (1024 channels) with LAYER 3, else through layer4,
   and never a finetuned tail; vanilla with LAYER 3 has the layer4 tail.
+- Late fusion over a ViT (the `ablate_dinoB8_*` configs): LATE_TYPE cls
+  feeds the late head the final-norm CLS feature as a 1x1 grid; LATE_TYPE
+  spatial the tapped pre-norm patch tokens (SMART_FEATS) on the g x g grid.
+  The head pools the grid over its spatial axes in the backbone's compute
+  type, then computes in fp32.
 - Still to come, each with its slice: a ViT under TRAIN_BASE train_all,
-  late fusion over a ViT, QUANTIZE_BACKBONE (W8A8 int8 ViT matmuls).
+  QUANTIZE_BACKBONE (W8A8 int8 ViT matmuls).
 """
 
 from __future__ import annotations
@@ -80,6 +86,7 @@ class ModelSpec:
     conv_params: Tuple[Tuple[int, int, int], ...] = ()  # conv: (ch, k, tpad)
     num_contexts: int = 1         # conv / vanilla: frames a step
     fusion_type: str = "late"     # late | smart
+    late_type: str = "cls"        # late fusion over a ViT: cls | spatial
     vit_spec: Optional[ViTSpec] = None  # None = ResNet backbone
     vit_front_blocks: int = 0     # frozen ViT blocks (the depth: fully frozen)
     remat: bool = False           # MODEL.REMAT: recompute the trainable tail
@@ -102,8 +109,9 @@ class ModelSpec:
 
 def _resolve_vit(cfg, name, fusion_type):
     """(spec, taps, out_channel, frozen blocks) of a timm ViT with the smart
-    head, fully frozen (LAYER outside [0, depth)) or frozen up to block
-    LAYER; the other ViT wirings raise, naming the slice that brings them."""
+    or the late head, fully frozen (LAYER outside [0, depth)) or frozen up
+    to block LAYER. Late-cls taps nothing and feeds the embed width; the
+    other ViT wirings raise, naming the slice that brings them."""
     m = cfg.MODEL
     if name not in VIT_SPECS:
         raise ValueError(f"unknown TIMM model {name}")
@@ -112,9 +120,6 @@ def _resolve_vit(cfg, name, fusion_type):
         raise NotImplementedError(
             f"EMBEDDER_TYPE {m.EMBEDDER_TYPE} over a ViT backbone (no shipped "
             "config) comes with ROADMAP queue 1 item 8")
-    if fusion_type != "smart":
-        raise NotImplementedError(
-            "late fusion over a ViT backbone comes with ROADMAP queue 1 item 3")
     if m.TRAIN_BASE == "train_all":
         raise NotImplementedError(
             "a ViT trained end to end (TRAIN_BASE train_all) comes in a later "
@@ -122,23 +127,25 @@ def _resolve_vit(cfg, name, fusion_type):
     if m.QUANTIZE_BACKBONE:
         raise NotImplementedError(
             "QUANTIZE_BACKBONE (W8A8 int8 ViT matmuls) comes in a later slice")
-    taps = parse_smart_feats(m.EMBEDDER_MODEL.SMART_FEATS, vit.depth - 1)
-    if any(t < 0 or t >= vit.depth for t in taps):
-        raise ValueError(f"SMART_FEATS taps {taps} out of range for {name} "
-                         f"(depth {vit.depth})")
+    taps = ()
+    if fusion_type != "late" or m.EMBEDDER_MODEL.LATE_TYPE == "spatial":
+        taps = parse_smart_feats(m.EMBEDDER_MODEL.SMART_FEATS, vit.depth - 1)
+        if any(t < 0 or t >= vit.depth for t in taps):
+            raise ValueError(f"SMART_FEATS taps {taps} out of range for {name} "
+                             f"(depth {vit.depth})")
     layer = m.BASE_MODEL.LAYER
     front = vit.depth if layer < 0 or layer >= vit.depth else layer
     if front < vit.depth and any(t < front for t in taps):
         raise ValueError("SMART_FEATS tap below the frozen/finetune split "
                          "(`transformer.py:104-114`)")
-    return vit, taps, vit.embed_dim * len(taps), front
+    return vit, taps, vit.embed_dim * max(1, len(taps)), front
 
 
 def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
     """The JAX package's `resolve_model_spec` for the wirings ported so far:
-    a ResNet with the late-fusion head (CARL), the conv or vanilla
-    embedder (TCC / TCN), and the smart multi-entity head (MV-Former) over
-    a fully or partially frozen timm ViT or a ResNet."""
+    the late-fusion head (CARL) over a ResNet or a timm ViT, the conv or
+    vanilla embedder (TCC / TCN), and the smart multi-entity head
+    (MV-Former) over a fully or partially frozen timm ViT or a ResNet."""
     m = cfg.MODEL
     e = m.EMBEDDER_MODEL
     network = m.BASE_MODEL.NETWORK
@@ -205,6 +212,7 @@ def resolve_model_spec(cfg: ConfigNode) -> ModelSpec:
                           for ch, k, tp in (e.CONV_LAYERS or [])),
         num_contexts=int(cfg.DATA.NUM_CONTEXTS),
         fusion_type=fusion_type,
+        late_type=e.LATE_TYPE,
         vit_spec=vit,
         vit_front_blocks=front,
         remat=bool(m.REMAT),
@@ -302,7 +310,9 @@ class CARLModel(nn.Module):
                 return outs[0]
             if isinstance(outs[0], torch.Tensor):
                 return torch.cat(outs)
-            return tuple(torch.cat(parts) for parts in zip(*outs))
+            # late-cls taps nothing: (None, CLS) a chunk
+            return tuple(None if parts[0] is None else torch.cat(parts)
+                         for parts in zip(*outs))
         if self.spec.train_base == "train_all":
             with self._autocast(frames.device):
                 return self.backbone(frames)
@@ -315,10 +325,13 @@ class CARLModel(nn.Module):
     def _backbone_features(self, frames):
         """(N, 3, H, W) frames -> (features, CLS or None): a ResNet's
         (N, C, h, w) after the finetuned tail; a ViT's tapped tokens without
-        the CLS token on the (N, g, g, C) patch grid, and its CLS feature."""
+        the CLS token on the (N, g, g, C) patch grid (late-cls: the CLS
+        feature as a (N, 1, 1, C) grid), and its CLS feature."""
         feats = self._run_frozen(frames)
         if self.spec.vit_spec is not None:
             taps, cls = feats if self.res_finetune is None else self._run_back(feats)
+            if self.spec.fusion_type == "late" and self.spec.late_type == "cls":
+                return cls[:, None, None, :], cls
             g = self.spec.vit_spec.grid
             return taps[:, 1:].reshape(taps.shape[0], g, g, taps.shape[-1]), cls
         if self.res_finetune is not None:
@@ -375,6 +388,8 @@ class CARLModel(nn.Module):
                              backbone_warmup_active=backbone_warmup_active,
                              true_len=true_seq_len)
         else:
+            if s.vit_spec is not None:  # NHWC ViT grids -> the NCHW maps it pools
+                feats = feats.permute(0, 1, 4, 2, 3)
             emb = self.embed(feats, video_masks=video_masks, true_len=true_seq_len)
         emb = emb.float()
         if self.ssl_projection is not None and project:

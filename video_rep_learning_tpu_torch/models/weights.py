@@ -25,6 +25,13 @@ so `set_trainable` trains them with no rule of their own. The reference
 layout has every block under `backbone.model`: `split_vit_state` maps it
 onto the partial model, and `load_model_state` does so for a dict with no
 `res_finetune.*` key (a warm start from a fully frozen MV-Former `.pth`).
+
+Late fusion over a ViT with LATE_TYPE cls: the reference assigns the bare
+timm model to `backbone`, so its dict holds the ViT under `backbone.*`, not
+`backbone.model.*` (the JAX exporter's `wrapped=False`). The port keeps its
+module tree and maps the keys: `load_model_state` reads such a dict (and
+nothing else) into `backbone.model.*`, and `reference_state` writes it back
+under `backbone.*`, which every checkpoint writer of the port uses.
 """
 
 from __future__ import annotations
@@ -127,14 +134,38 @@ def split_vit_state(sd, num_front_blocks: int):
     return out
 
 
+_WRAPPED, _BARE = "backbone.model.", "backbone."
+
+
+def unwrapped_vit(model: torch.nn.Module) -> bool:
+    """Whether the reference layout of `model` holds its ViT under
+    `backbone.*` (late fusion, LATE_TYPE cls) rather than `backbone.model.*`."""
+    spec = getattr(model, "spec", None)
+    return (getattr(spec, "vit_spec", None) is not None
+            and spec.fusion_type == "late" and spec.late_type == "cls")
+
+
+def reference_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """`model`'s state dict on the CPU in the reference layout: a late-cls
+    ViT's `backbone.model.*` as `backbone.*`, everything else as it is."""
+    bare = unwrapped_vit(model)
+    return {(_BARE + k[len(_WRAPPED):] if bare and k.startswith(_WRAPPED) else k):
+            v.detach().cpu() for k, v in model.state_dict().items()}
+
+
 def load_model_state(model: torch.nn.Module, model_state) -> None:
     """Load a reference-layout state dict strictly. One with no
     `classifier.*` key keeps the model's classifier: the reference always
     saves that head, the JAX package creates it only for the classification
     algorithm (its importer's optional root), and SCL never runs it. Into a
-    partially frozen ViT, a dict with no `res_finetune.*` key goes through
-    `split_vit_state` first."""
+    late-cls ViT, `backbone.*` keys go to `backbone.model.*` (a dict in the
+    wrapped layout then fails the strict load). Into a partially frozen ViT,
+    a dict with no `res_finetune.*` key goes through `split_vit_state`
+    first."""
     sd = dict(model_state)
+    if unwrapped_vit(model):
+        sd = {(_WRAPPED + k[len(_BARE):] if k.startswith(_BARE) else k): v
+              for k, v in sd.items()}
     spec = getattr(model, "spec", None)
     vit = getattr(spec, "vit_spec", None)
     if (vit is not None and spec.vit_front_blocks < vit.depth
@@ -151,6 +182,5 @@ def save_checkpoint(model: torch.nn.Module, logdir: str, epoch: int = 0) -> str:
     ({"epoch", "model_state"}, reference layout) and return the path."""
     path = os.path.join(logdir, "checkpoints", f"checkpoint_epoch_{epoch:05d}.pth")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save({"epoch": int(epoch), "model_state": state}, path)
+    torch.save({"epoch": int(epoch), "model_state": reference_state(model)}, path)
     return path

@@ -33,8 +33,13 @@ data wait, 1 = H2D, 2 = step dispatch, 5 = logging).
   epochs.
 - The SCL loss goes through `algos/scl.py::scl_loss_dispatch`: the fused
   CUDA kernels under VRL_FUSED_SCL=1, or at N >= 8192 frames by default.
-Left for later slices: mid-epoch checkpoints, the val video panels,
-multi-process DDP.
+- CHECKPOINT.SAVE_EVERY_N_ITERS n > 0 writes a mid-epoch checkpoint every
+  n steps. A run resumed from one consumes the loader up to its iteration
+  without stepping; the per-step seeds, the epoch-seeded loader and the
+  epoch-pure LR then make it equal to an uninterrupted run bit for bit.
+- The val epoch logs its last batch's augmented views as video panels
+  (`_log_val_video_panels`), in a single process only.
+Left for a later slice: multi-process DDP.
 """
 
 from __future__ import annotations
@@ -47,14 +52,14 @@ import torch
 
 from ..algos import get_algo
 from ..config import ConfigNode
-from ..data import construct_dataloader
+from ..data import construct_dataloader, unnorm
 from ..logging_utils import get_logger
 from ..models import build_model, set_trainable
 from ..models.weights import load_model_state
 from ..ops.augment import (AugmentParams, SupervisedParams, sample_ssl_batch,
                            sample_supervised_batch, ssl_batch_augment,
                            supervised_batch_augment)
-from .checkpoint import resume, save_checkpoint
+from .checkpoint import resume, save_checkpoint, save_mid_checkpoint
 from .optimizer import Optimizer, learning_rate_for_epoch
 
 logger = get_logger(__name__)
@@ -74,11 +79,6 @@ class Trainer:
 
     def __init__(self, cfg: ConfigNode, summary_writer=None, no_eval: bool = False,
                  build_loaders: bool = True, device="cuda"):
-        if cfg.CHECKPOINT.SAVE_EVERY_N_ITERS > 0:
-            raise NotImplementedError(
-                "CHECKPOINT.SAVE_EVERY_N_ITERS > 0 (mid-epoch checkpoints with "
-                "exact resume) comes with ROADMAP queue 1 item 5; the port "
-                "checkpoints once an epoch")
         self.cfg = cfg
         self.device = torch.device(device)
         torch.manual_seed(cfg.RNG_SEED)  # the initial weights
@@ -105,6 +105,7 @@ class Trainer:
         else:
             self.aug = SupervisedParams.from_cfg(cfg)
         self.start_epoch = 0
+        self.start_iter = 0  # > 0 after a resume from a mid-epoch checkpoint
         self.last_markers: Dict[int, float] = {}
 
     def _warm_start(self, path: str):
@@ -118,11 +119,13 @@ class Trainer:
         load_model_state(self.model, ckpt.get("model_state", ckpt))
         logger.info("warm start from torch checkpoint %s", path)
 
-    def init_state(self) -> int:
-        """Auto-resume from the newest epoch checkpoint of LOGDIR; returns the
-        epoch to start at."""
-        start = resume(self.cfg.LOGDIR, self.model, self.optimizer)
-        self.start_epoch = 0 if start is None else start
+    def init_state(self, resume_mid: bool = True) -> int:
+        """Auto-resume from the checkpoint of LOGDIR that is furthest along
+        (epoch checkpoints only with `resume_mid=False`); returns the epoch
+        to start at, and sets the iteration (`start_iter`)."""
+        start = resume(self.cfg.LOGDIR, self.model, self.optimizer,
+                       include_mid=resume_mid)
+        self.start_epoch, self.start_iter = (0, 0) if start is None else start
         return self.start_epoch
 
     # -- one step ---------------------------------------------------------
@@ -186,12 +189,20 @@ class Trainer:
         warmup_active = self.backbone_warmup_active(epoch)
         self.train_loader.set_epoch(epoch)
         lr = learning_rate_for_epoch(cfg, epoch)
+        # a mid-epoch resume consumes the loader up to the saved iteration
+        # without stepping
+        skip_until = self.start_iter if epoch == self.start_epoch else 0
+        self.start_iter = 0
+        save_n = int(cfg.CHECKPOINT.SAVE_EVERY_N_ITERS or 0)
         data_size = len(self.train_loader)
         losses = []
         tmt = {i: 0.0 for i in range(10)}
         tmc = 0
         t1 = time.time()
         for cur_iter, batch in enumerate(self.train_loader):
+            if cur_iter < skip_until:
+                t1 = time.time()
+                continue
             tmc += 1
             tmt[0] += time.time() - t1
             t1 = time.time()
@@ -206,6 +217,9 @@ class Trainer:
                 # reading the value waits for this step
                 logger.info("iter %d, training loss: %.3f",
                             data_size * epoch + cur_iter, float(losses[-1]))
+            if save_n > 0 and (cur_iter + 1) % save_n == 0:
+                save_mid_checkpoint(cfg.LOGDIR, self.model, self.optimizer, epoch,
+                                    cur_iter + 1, cfg)
             tmt[5] += time.time() - t1
             t1 = time.time()
 
@@ -231,17 +245,40 @@ class Trainer:
         self.model.eval()
         data_size = len(self.val_loader)
         losses = []
+        videos = names = None
         for cur_iter, batch in enumerate(self.val_loader):
             dev_batch = self.device_batch(batch)
             videos = self.augment(batch, dev_batch, VAL_STREAM, 0, cur_iter)
+            names = batch.get("names")
             loss = self.algo.compute_loss(self.model,
                                           dict(dev_batch, videos=videos))["loss"]
             losses.append(torch.where(torch.isnan(loss), 0.0, loss))
         total = float(torch.stack(losses).sum().cpu()) / data_size if losses else 0.0
+        self._log_val_video_panels(videos, names)
         if self.summary_writer is not None:
             self.summary_writer.add_scalar("val/loss", total, epoch)
         logger.info("epoch %d, val loss: %.3f", epoch, total)
         return {"loss": total}
+
+    def _log_val_video_panels(self, videos, names):
+        """Video panels of the last val batch's augmented views
+        (`train.py:217-224`): its first clip, every second frame,
+        unnormalised, at 4 fps; one panel a view under SSL. A single process
+        only."""
+        if (self.summary_writer is None or videos is None
+                or (torch.distributed.is_initialized()
+                    and torch.distributed.get_world_size() != 1)):
+            return
+        # fp32 at the host boundary: under USE_AMP the frames are bf16
+        item = videos[0].float().cpu().numpy()  # (V, T, S, S, 3) | (T, S, S, 3)
+        tag = f"{tuple(names)}" if names is not None else "val_batch"
+        if self.cfg.SSL:
+            for i, view in enumerate(item):
+                arr = unnorm(view[::2].transpose(0, 3, 1, 2))
+                self.summary_writer.add_video(f"{tag}_view{i}", arr[None], 0, fps=4)
+        else:
+            arr = unnorm(item[::2].transpose(0, 3, 1, 2))
+            self.summary_writer.add_video(tag, arr[None], 0, fps=4)
 
     def fit(self, evaluate_fn=None):
         """`train.py:309-339`: epochs from `start_epoch`, a checkpoint every
