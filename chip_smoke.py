@@ -3,8 +3,9 @@
 kernels from the checkout, holds each against its plain PyTorch version,
 drives the CARL embedding and training paths, the MV-Former embedding and
 training paths, the supervised paths, late fusion over a ViT, the FineGym
-harness and a mid-epoch resume end to end at full model width, and compares
-the card with the CPU on each.
+harness, a mid-epoch resume and data parallelism (a world of 1 over NCCL,
+two ranks sharing the card over gloo) end to end at full model width, and
+compares the card with the CPU on each.
 
     python3 chip_smoke.py
 
@@ -138,6 +139,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    frozen, VRL_FUSED_SCL=1) for an epoch of 6 steps with a mid checkpoint
    every 2, uninterrupted, and again stopped after the second mid save
    and resumed: every tensor and optimizer moment bit-identical.
+17. data parallelism (`video_rep_learning_tpu_torch/parallel/`): (a)
+   pouring_mvf.yml through the training CLI under VRL_FUSED_SCL=1 for an
+   epoch without a process group, then as rank 0 of a world of 1 over NCCL
+   (`--coordinator 127.0.0.1:<port> --num_processes 1 --process_id 0`: DDP,
+   the synced BatchNorm): every kernel's launches equal, every tensor and
+   optimizer moment bit-identical; warm steps of both in turns; (b) two
+   ranks on the one card over gloo (NCCL takes one rank a card), this
+   process rank 0 and a second one rank 1: warm steps of
+   scl_transformer_config (CARL, USE_AMP, 1 clip x 2 views x 240 frames a
+   rank) and of pouring_mvf (VRL_FUSED_SCL=1, local N 480) with exact
+   per-rank launches of #1, #3, #12 and #4-#6, #8, #10, the ranks' trainable
+   tensors and BN statistics bit-identical after every step; one fp32 step
+   at two ranks on the card against the same step on the CPU (STEP_TOL);
+   one tcc_transformer step at 1 clip a rank (the global pair list); (c)
+   fg99_mvf's FineGym harness at two ranks (each video dumped once, one
+   file list, one accuracy). Two ranks on one card show correctness and
+   overhead, not scaling.
 Phase 3 also holds #7 (matmul + GELU) and #9 (the LN-MLP half-block)
 against their plain versions, times #9 at 480 frames too, and checks the
 six ViT kernels' gradients (the kernel forward, the plain backward chunked
@@ -3075,6 +3093,366 @@ def phase_mid_resume(data_root):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: data parallelism (one process per card; two ranks share the card)
+# ---------------------------------------------------------------------------
+
+DDP_WARM_STEPS = 3  # timed warm steps a rank and config
+DDP_TIMEOUT_S = 600  # a collective waiting on a dead peer fails after this
+DDP_FP32_FRAMES = 16  # a view, for the two-rank fp32 step card vs CPU
+
+
+def phase_ddp_world1(data_root, card):
+    """17a: pouring_mvf.yml through `python -m video_rep_learning_tpu_torch.train`'s
+    function under VRL_FUSED_SCL=1 for one epoch, without a process group and
+    as rank 0 of a world of 1 over NCCL (DDP, the synced BatchNorm): equal
+    launches of every kernel and bit-identical weights, BN statistics and
+    optimizer moments. Then warm steps of each in turns (none, NCCL, NCCL,
+    none). Returns the NCCL run's launches and the numbers."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.evaluation import TASK_REGISTRY
+    from video_rep_learning_tpu_torch.parallel import process_group
+    from video_rep_learning_tpu_torch.tools.ddp_cards import free_port
+    from video_rep_learning_tpu_torch.train import Trainer
+    from video_rep_learning_tpu_torch.train.cli import main as train_main
+
+    TASK_REGISTRY["embedding_check"] = EmbeddingCheck
+    opts = smoke_opts(["TRAIN.MAX_EPOCHS", "1", "RNG_SEED", str(SEED)],
+                      tasks=("kendalls_tau",))
+    runs = {}
+    with env_vars(VRL_FUSED_SCL="1"):
+        for name in ("none", "nccl"):
+            logdir = os.path.join(WORK, f"ddp_world1_{name}_logs")
+            shutil.rmtree(logdir, ignore_errors=True)
+            flags = [] if name == "none" else [
+                "--coordinator", f"127.0.0.1:{free_port()}", "--num_processes", "1",
+                "--process_id", "0"]
+            _reset_launches()
+            t0 = time.time()
+            trainer = train_main(["--workdir", data_root, "--logdir", logdir,
+                                  "--cfg_file", MVF_CFG_FILE, "--device", "cuda", *flags,
+                                  "--opts", *opts])
+            torch.cuda.synchronize()
+            wrapped = isinstance(trainer.net, DistributedDataParallel)
+            if wrapped != (name == "nccl") or torch.distributed.is_initialized():
+                raise AssertionError(f"17a {name}: DDP {wrapped}, group left "
+                                     f"{torch.distributed.is_initialized()}")
+            runs[name] = (_read_launches(), trainer, time.time() - t0)
+        (l0, t_none, s0), (l1, t_nccl, s1) = runs["none"], runs["nccl"]
+        a, b = t_none.model.state_dict(), t_nccl.model.state_dict()
+        differ = [k for k, v in a.items() if not torch.equal(v, b[k])]
+        differ += [f"optimizer.{w}.{n}" for w in ("mu", "nu")
+                   for n, x, y in zip(t_none.optimizer.names, getattr(t_none.optimizer, w),
+                                      getattr(t_nccl.optimizer, w)) if not torch.equal(x, y)]
+        steps = len(t_nccl.train_loader)
+        log(f"17a world-1 NCCL (pouring_mvf, VRL_FUSED_SCL=1, {steps} steps, val, "
+            f"evaluation): {s1:.2f} s vs {s0:.2f} s without a group; launches "
+            f"{'equal' if l0 == l1 else 'DIFFER'} {json.dumps(l1)}; {len(a)} tensors and "
+            f"{2 * len(t_none.optimizer.names)} optimizer moments "
+            + ("bit-identical" if not differ else "DIFFER: " + ", ".join(differ[:12])))
+        if l0 != l1 or differ or l1["scl_grad"] != steps:
+            raise AssertionError("the world-1 NCCL run is not the run without a group")
+        del runs, t_none, t_nccl, trainer
+        torch.cuda.empty_cache()
+        cfg = cli.load_config(cli.parse_cli(["--cfg_file", MVF_CFG_FILE, "--opts", *opts])[0])
+        cfg.PATH_TO_DATASET = os.path.join(data_root, cfg.PATH_TO_DATASET)
+        step_ms = {"none": [], "nccl": []}
+        for name in ("none", "nccl", "nccl", "none"):
+            with process_group(None if name == "none" else f"127.0.0.1:{free_port()}",
+                               1, 0, "cuda") as device:
+                trainer = Trainer(cfg, no_eval=True, device=device)
+                step_ms[name].append(warm_steps(trainer, DDP_WARM_STEPS)[1])
+                del trainer
+            torch.cuda.empty_cache()
+    log(f"17a warm ms/step, pouring_mvf, VRL_FUSED_SCL=1, in turns: without a group "
+        f"{step_ms['none']}, world-1 NCCL (DDP) {step_ms['nccl']} on {card}")
+    return l1, {"step_ms": step_ms, "cli_s": {"none": s0, "nccl": s1}}
+
+
+def _ddp_cfg(cfg_file, data_root, opts=()):
+    from video_rep_learning_tpu_torch import evaluate as cli
+
+    cfg = cli.load_config(cli.parse_cli(
+        ["--cfg_file", cfg_file, "--opts", *smoke_opts(["RNG_SEED", str(SEED), *opts])])[0])
+    cfg.PATH_TO_DATASET = os.path.join(data_root, cfg.PATH_TO_DATASET)
+    return cfg
+
+
+def _ranks_agree(what, value):
+    """Every rank's `value` (gathered), which must be one."""
+    from video_rep_learning_tpu_torch.parallel import all_gather_object
+
+    values = all_gather_object(value)
+    if any(v != values[0] for v in values):
+        raise AssertionError(f"{what}: the ranks disagree: {values}")
+    return values
+
+
+def ddp_steps(what, cfg_file, data_root, want, opts=()):
+    """DDP_WARM_STEPS timed warm steps on this rank's first batch after one
+    untimed: exact launches (`want`, a step's), the state bit-identical
+    across the ranks after every step. Returns (ms/step, losses)."""
+    from video_rep_learning_tpu_torch.parallel import world
+    from video_rep_learning_tpu_torch.tools.ddp_cards import state_digest
+    from video_rep_learning_tpu_torch.train import Trainer
+
+    trainer = Trainer(_ddp_cfg(cfg_file, data_root, opts), no_eval=True, device="cuda")
+    trainer.train_loader.set_epoch(0)
+    batch = next(iter(trainer.train_loader))
+    trainer.train_step(batch, trainer.device_batch(batch), 9, 0, 1e-4)
+    _ranks_agree(f"{what} after the untimed step", state_digest(trainer.model))
+    _reset_launches()
+    spent, losses = 0.0, []
+    for it in range(DDP_WARM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses.append(float(trainer.train_step(batch, trainer.device_batch(batch), 9,
+                                               it + 1, 1e-4)))
+        spent += time.time() - t0
+        _ranks_agree(f"{what} after step {it + 1}", state_digest(trainer.model))
+    launches = _read_launches()
+    got = {k: launches[k] for k in want}
+    want = {k: v * DDP_WARM_STEPS for k, v in want.items()}
+    step_ms = spent / DDP_WARM_STEPS * 1e3
+    size, rank = world()
+    log(f"17b rank {rank} of {size}, {what}: {step_ms:.1f} ms/step over "
+        f"{DDP_WARM_STEPS} warm steps ({batch['videos'].shape[0]} clip a rank); "
+        f"losses {losses}; launches {json.dumps(got)} (expected {json.dumps(want)}); "
+        f"ranks bit-identical after every step")
+    if got != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"17b {what}: wrong launches or a non-finite loss")
+    del trainer
+    torch.cuda.empty_cache()
+    return step_ms, losses
+
+
+def ddp_fp32_step(data_root):
+    """One fp32 step of scl_transformer_config (USE_AMP off, TF32 off,
+    dropout off, DDP_FP32_FRAMES frames a view of frames that differ, jitter
+    and blur on) at two ranks, on the card and on the CPU over the same
+    group: the same weights, batch and sampled augmentation (the rank's rows
+    of the global draw). Frames, the ranks' mean loss and the averaged head
+    gradients held card vs CPU on STEP_TOL (layer4 logged: phase 6 holds it
+    in fp64)."""
+    from video_rep_learning_tpu_torch.ops.augment import (AugmentParams,
+                                                          sample_ssl_batch,
+                                                          ssl_batch_augment)
+    from video_rep_learning_tpu_torch.parallel import all_reduce_sum, world
+    from video_rep_learning_tpu_torch.train import Trainer
+
+    size, rank = world()
+    cfg = _ddp_cfg(CFG_FILE, data_root, ["USE_AMP", "False", "TRAIN.NUM_FRAMES",
+                                         str(DDP_FP32_FRAMES),
+                                         "MODEL.EMBEDDER_MODEL.FC_DROPOUT_RATE", "0.0"])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        trainer = Trainer(cfg, no_eval=True, build_loaders=dev == "cuda", device=dev)
+        if dev == "cuda":
+            trainer.train_loader.set_epoch(0)
+            batch = next(iter(trainer.train_loader))
+            videos = differing_frames(tuple(batch["videos"].shape), SEED + rank)
+            B, V, _, H, W, _ = videos.shape
+            aug = AugmentParams(image_size=cfg.IMAGE_SIZE)
+            sampled = sample_ssl_batch(torch.Generator().manual_seed(SEED), B, V, H, W,
+                                       batch["dims"], aug, skip=rank * B)
+            sampled["fscal"][:, [0, 5]] = 1
+        trainer.model.train()
+        tb = {"videos": ssl_batch_augment(torch.as_tensor(videos).to(dev), sampled, aug)}
+        for k in ("video_masks", "seq_lens", "chosen_steps"):
+            tb[k] = torch.as_tensor(batch[k]).to(dev)
+        loss = trainer.algo.compute_loss(trainer.net, tb)["loss"]
+        loss.backward()
+        out[dev] = (tb["videos"].float().cpu(), all_reduce_sum(loss.item()) / size,
+                    _head_grads(trainer.model))
+        del trainer
+    ok, _ = check_step(f"17b rank {rank} of {size}: one fp32 step at two ranks (1 clip "
+                       f"x 2 views x {DDP_FP32_FRAMES} frames a rank, full width, the "
+                       f"ranks' mean loss, DDP-averaged gradients)", out, GRAD_GROUPS,
+                       held_elsewhere=("layer4",))
+    if not ok:
+        raise AssertionError("17b: the card's two-rank fp32 step disagrees with the CPU's")
+    return out["cuda"][1]
+
+
+def ddp_tcc_step(data_root):
+    """One tcc_transformer_config step at 1 clip a rank: the loss over the
+    global pair list of the gathered embeddings (the branch for fewer than
+    2 sequences a rank), the same on both ranks; #1 and #3 once an encoder
+    layer; the ranks bit-identical after the step. Returns the loss."""
+    from video_rep_learning_tpu_torch.algos import tcc
+    from video_rep_learning_tpu_torch.parallel import world
+    from video_rep_learning_tpu_torch.tools.ddp_cards import state_digest
+    from video_rep_learning_tpu_torch.train import Trainer
+
+    gathered = []
+    real = tcc.all_gather_with_grad
+    tcc.all_gather_with_grad = lambda t: gathered.append(t.shape) or real(t)
+    try:
+        trainer = Trainer(_ddp_cfg(SUP_CFGS["tcc_transformer_config"], data_root,
+                                   ["TRAIN.BATCH_SIZE", "1"]), no_eval=True, device="cuda")
+        trainer.train_loader.set_epoch(0)
+        batch = next(iter(trainer.train_loader))
+        _reset_launches()
+        loss = float(trainer.train_step(batch, trainer.device_batch(batch), 0, 0, 1e-4))
+        launches = _read_launches()
+    finally:
+        tcc.all_gather_with_grad = real
+    layers = trainer.cfg.MODEL.EMBEDDER_MODEL.NUM_LAYERS
+    losses = _ranks_agree("17b TCC loss", loss)
+    _ranks_agree("17b TCC state after the step", state_digest(trainer.model))
+    size, rank = world()
+    log(f"17b rank {rank} of {size}, tcc_transformer (1 clip a rank, "
+        f"{trainer.cfg.TRAIN.NUM_FRAMES} frames): loss {loss} on every rank "
+        f"({losses}), gathered {[tuple(s) for s in gathered]}, #1 "
+        f"{launches['flash_attn_fwd']}, #3 {launches['flash_attn_bwd']} launches")
+    if (not np.isfinite(loss) or len(gathered) != 3 or launches["flash_attn_fwd"] != layers
+            or launches["flash_attn_bwd"] != layers):
+        raise AssertionError("17b: the TCC step did not take the global pair list")
+    del trainer
+    torch.cuda.empty_cache()
+    return loss
+
+
+def ddp_finegym(card):
+    """17c: fg99_mvf's FineGym harness at two ranks on seeded weights over
+    the synthetic gym99 set (made here if phase 16 did not): each rank dumps
+    its half of the videos, the file lists are gathered, the probe runs at
+    the config's settings on each rank's shard. Every video dumped once, one
+    file list and one accuracy across the ranks. Returns the numbers."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.data import construct_dataloader
+    from video_rep_learning_tpu_torch.evaluation import finegym
+    from video_rep_learning_tpu_torch.models import build_model
+    from video_rep_learning_tpu_torch.parallel import is_root_proc, synchronize, world
+
+    root = os.path.join(WORK, "data")
+    if is_root_proc() and not os.path.exists(os.path.join(root, "finegym", "gym99_val.pkl")):
+        make_gym99_set()
+    synchronize()
+    logdir = os.path.join(WORK, "fg99_ddp_logs")
+    cfg = cli.load_config(cli.parse_cli(
+        ["--cfg_file", FG_CFG_FILE, "--logdir", logdir, "--opts", "DATA.NUM_WORKERS",
+         "4", "RNG_SEED", str(SEED)])[0])
+    cfg.PATH_TO_DATASET = os.path.join(root, cfg.PATH_TO_DATASET)
+    torch.manual_seed(SEED)
+    model = build_model(cfg, "cuda")
+    loaders = {s: construct_dataloader(cfg, s)[1][0] for s in FG_SPLITS}
+    lists, spans = [], {"dump": [], "probe": []}
+    real = finegym.train_linear_probe
+
+    def probe(cfg_, train, val, *args, **kwargs):
+        lists.append((list(train), list(val)))
+        return real(cfg_, train, val, *args, **kwargs)
+
+    finegym.train_linear_probe = probe
+    try:
+        with timing(finegym, "dump_embeddings_dataset", spans["dump"]), \
+                timing(finegym, "train_linear_probe", spans["probe"]):
+            accs = finegym.evaluate_loaders(cfg, model, loaders["train"], loaders["val"],
+                                            0, None, "cuda")
+    finally:
+        finegym.train_linear_probe = real
+    size, rank = world()
+    _ranks_agree("17c accuracies", accs)
+    _ranks_agree("17c gathered file lists", lists)
+    ok = sorted(accs) == sorted(cfg.EVAL.CLASSIFICATION_FRACTIONS) and all(
+        np.isfinite(a) and 0.0 <= a <= 100.0 for a in accs.values())
+    mine = {s: len(loader) for s, loader in loaders.items()}
+    for i, (split, n) in enumerate(FG_SPLITS.items()):
+        files = sorted(os.listdir(os.path.join(logdir, f"finegym_eval_{split}set")))
+        ok &= (len(files) == n and len(lists[0][i]) == n
+               and sorted(os.path.basename(f) for f in lists[0][i]) == files
+               and mine[split] == n // size)
+    frames = {s: sum(int(loader.dataset.entries[int(i)]["seq_len"])
+                     for i in loader.sampler.indices()) for s, loader in loaders.items()}
+    fps = {s: frames[s] / t for s, t in zip(FG_SPLITS, spans["dump"])}
+    log(f"17c rank {rank} of {size}, fg99_mvf harness (seeded weights): its shard "
+        f"{json.dumps(mine)} videos; every video dumped once "
+        f"({'ok' if ok else 'FAIL'}); accuracies {json.dumps(accs)} on every rank; "
+        f"dump {json.dumps({s: round(v, 1) for s, v in fps.items()})} frames/s "
+        f"({json.dumps(frames)} frames of this rank in "
+        f"{[round(t, 3) for t in spans['dump']]} s), probe "
+        f"{[round(t, 3) for t in spans['probe']]} s a fraction on {card}")
+    if not ok:
+        raise AssertionError("17c: the FineGym harness at two ranks failed its checks")
+    del model
+    torch.cuda.empty_cache()
+    return {"accs": accs, "dump_fps": fps, "dump_s": spans["dump"],
+            "probe_s": spans["probe"], "shard_videos": mine}
+
+
+def ddp_rank(rank, port, data_root, card):
+    """17b and 17c as rank `rank` of two, both on card 0, over gloo (NCCL
+    takes one rank a card). Returns every rank's numbers and this rank's
+    launches."""
+    from video_rep_learning_tpu_torch.parallel import all_gather_object, init_distributed
+
+    # TF32 off on every rank, as `phase_environment` sets it for this process
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(f"127.0.0.1:{port}", 2, rank, "cuda", backend="gloo",
+                     timeout=DDP_TIMEOUT_S)
+    nums, launches = {}, {}
+    vit = vit_launches(2 * 240)  # a step's 2 views x 240 frames in 40-frame chunks
+    mvf_want = dict(vit, crop_photometric=1, flash_attn_fwd=3, flash_attn_bwd=3,
+                    scl_rowsum=1, scl_loss_rows=1, scl_srow=1, scl_grad=1)
+    carl_want = {"crop_photometric": 1, "flash_attn_fwd": 2, "flash_attn_bwd": 2}
+    nums["carl_ms"], _ = ddp_steps("scl_transformer_config (CARL, USE_AMP)", CFG_FILE,
+                                   data_root, carl_want)
+    launches["CARL steps"] = _read_launches()
+    with env_vars(VRL_FUSED_SCL="1"):
+        nums["mvf_ms"], _ = ddp_steps("pouring_mvf (VRL_FUSED_SCL=1, local N 480)",
+                                      MVF_CFG_FILE, data_root, mvf_want)
+    launches["MV-Former steps"] = _read_launches()
+    _reset_launches()
+    nums["fp32_loss"] = ddp_fp32_step(data_root)
+    launches["fp32 step"] = _read_launches()
+    nums["tcc_loss"] = ddp_tcc_step(data_root)
+    launches["TCC step"] = _read_launches()
+    _reset_launches()
+    nums["finegym"] = ddp_finegym(card)
+    launches["fg99 harness"] = _read_launches()
+    everyone = all_gather_object(nums)
+    torch.distributed.destroy_process_group()
+    return everyone, launches
+
+
+def phase_two_ranks(data_root, card):
+    """17b-c: this process is rank 0, a second process started here rank 1,
+    both on the one card (`ddp_rank`). Rank 1's output goes to
+    WORK/ddp_rank1.log, whose end is shown if it fails; it is stopped
+    whatever happens here."""
+    from video_rep_learning_tpu_torch.tools.ddp_cards import free_port
+
+    port = free_port()
+    path = os.path.join(WORK, "ddp_rank1.log")
+    code = (f"import chip_smoke; chip_smoke.ddp_rank(1, {port}, {data_root!r}, "
+            f"{card!r})")
+    with open(path, "w") as out:
+        child = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, stdout=out,
+                                 stderr=subprocess.STDOUT)
+    try:
+        everyone, launches = ddp_rank(0, port, data_root, card)
+        child.wait(timeout=120)
+    except BaseException:
+        with open(path) as f:
+            log("rank 1's output ends:\n" + f.read()[-6000:])
+        raise
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        with open(path) as f:
+            log("rank 1's output ends:\n" + f.read()[-6000:])
+        raise AssertionError(f"rank 1 exited {child.returncode}")
+    log("17b-c numbers by rank (two ranks share the card: correctness and "
+        f"overhead, not scaling): {json.dumps(everyone)} on {card}")
+    return launches, everyone
+
+
 JAX_OPS = "video_rep_learning_tpu/ops/"
 SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
     "flash_attn_fwd": ("csrc/flash_attn_fwd.cu", JAX_OPS + "attention_pallas.py:79"),
@@ -3172,6 +3550,19 @@ def main():
                              f"{strays}")
     log("phase 16 paths: none of " + ", ".join(TOOL_ENTRIES) + " launched")
     log("phase 16 numbers: " + json.dumps({"late": late_nums, "finegym": fg_nums}))
+    torch.cuda.empty_cache()
+    world1_launches, world1_nums = phase_ddp_world1(data_root, card)
+    torch.cuda.empty_cache()
+    ddp_launches, ddp_nums = phase_two_ranks(data_root, card)
+    ddp_paths = {"world-1 NCCL, pouring_mvf CLI": world1_launches,
+                 **{f"two ranks, rank 0: {k}": v for k, v in ddp_launches.items()}}
+    strays = {(path, k): n for path, counts in ddp_paths.items()
+              for k, n in counts.items() if k in TOOL_ENTRIES and n}
+    if strays:
+        raise AssertionError(f"a phase 17 path launched a micro-benchmark kernel: "
+                             f"{strays}")
+    log("phase 17 paths: none of " + ", ".join(TOOL_ENTRIES) + " launched")
+    log("phase 17 numbers: " + json.dumps({"world1": world1_nums, "two_ranks": ddp_nums}))
     # the kernels as built (PTXAS_KERNELS): registers, stack, spills; 13g's SASS
     for name, built in ptxas.items():
         entries[name]["ptxas"] = built
@@ -3207,6 +3598,7 @@ def main():
             "partial_train_launches": partial_launches.get(name, 0),
             "supervised_launches": {p: c[name] for p, c in sup_launches.items()},
             "phase16_launches": {p: c[name] for p, c in new_launches.items()},
+            "phase17_launches": {p: c[name] for p, c in ddp_paths.items()},
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],

@@ -128,3 +128,17 @@ def test_late_vit_config_trains_a_step(path, tiny_vit):
     assert np.isfinite(loss) and loss != 0.0
     moved = {n for n, p in tr.model.named_parameters() if not torch.equal(p, before[n])}
     assert moved and not any(n.startswith("backbone.") for n in moved)
+
+
+@pytest.mark.parametrize("sequence", [False, True])
+def test_tensor_parallelism_names_its_item(sequence):
+    """Every shipped config runs data parallelism (PARALLEL.TENSOR_PARALLELISM
+    1); the JAX package's head-parallel and Ulysses layouts beyond the
+    reference raise where the trainer reads the config, naming item 6b."""
+    assert all(int(_load(p).PARALLEL.TENSOR_PARALLELISM) == 1 for p in CONFIGS)
+    cfg = _shrink(_load("configs/scl_transformer_config.yml"))
+    cfg.PARALLEL.TENSOR_PARALLELISM = 2
+    cfg.PARALLEL.SEQUENCE_PARALLELISM = sequence
+    match = "Ulysses" if sequence else "queue 1 item 6b"
+    with pytest.raises(NotImplementedError, match=match):
+        Trainer(cfg, build_loaders=False, device="cpu")

@@ -7,7 +7,11 @@ kept one, fraction 1 alone under the classification algorithm); the whole
 harness on a tiny gym99-format set (one pickle per video and split, each
 video's embeddings against the JAX package's `dump_embeddings_dataset` on
 the same weights, exported with `convert_to_mvf_state_dict`); and the two
-ways in: `evaluate.main` and the trainer's `evaluate_fn`.
+ways in: `evaluate.main` and the trainer's `evaluate_fn`. At two gloo ranks
+(`tests/test_torch_parallel.py::run_ranks`): the probe against the JAX
+package's two-process flow (its process count and index patched, each
+process training its own probe on its shard, the counters summed), and the
+harness (each video dumped once, the file lists gathered, one accuracy).
 
 The whole models use a test-only ViT (64-d, 2 blocks, patch 8 at 32 px)
 registered in both packages' `VIT_SPECS`, with a shrunk
@@ -45,6 +49,7 @@ from video_rep_learning_tpu_torch.models.weights import load_model_state
 
 from tests.test_finegym_eval import _write_emb_files
 from tests.test_torch_model import perturb_batch_stats
+from tests.test_torch_parallel import run_ranks
 
 torch.set_num_threads(1)
 
@@ -131,6 +136,57 @@ def test_probe_matches_jax(tmp_path, monkeypatch, fraction):
                                np.asarray(params["w"]).T, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(probe.bias.detach().numpy(), np.asarray(params["b"]),
                                rtol=1e-5, atol=1e-6)
+
+
+class _JaxRankProxy(_JaxProxy):
+    """`_JaxProxy` as process `rank` of `count` sees it."""
+
+    def __init__(self, calls, rank, count):
+        super().__init__(calls)
+        self._rank, self._count = rank, count
+
+    def process_index(self):
+        return self._rank
+
+    def process_count(self):
+        return self._count
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("fraction", [1.0, 0.5])
+def test_probe_at_two_ranks_matches_jax_two_processes(tmp_path, monkeypatch, fraction):
+    """Each rank trains its own probe on its shard of the shuffled files
+    (padded to a multiple of 2; no gradient crosses ranks, as in the JAX
+    package), the train set's floor is 2 x 10 videos, and the counters are
+    summed: every rank's weights against the JAX process of its index, and
+    the accuracy, the same on both ranks, against the two JAX processes'
+    summed counters."""
+    train = _overlapping_files(tmp_path, 25, 0, "tr")
+    val = _overlapping_files(tmp_path, 13, 1, "va")
+    jcfg, pcfg = _probe_cfg(jax_config), _probe_cfg(port_config)
+    want, counters = [], []
+    for rank in (0, 1):
+        calls, sums = {}, []
+        monkeypatch.setattr(jax_finegym, "jax", _JaxRankProxy(calls, rank, 2))
+        monkeypatch.setattr(jax_finegym, "all_reduce_sum",
+                            lambda v: sums.append(v) or v)
+        jax_finegym.train_linear_probe(jcfg, train, val, fraction, 0, None)
+        want.append(calls["eval_correct"][0])
+        counters.append(sums[-2:])  # the last val epoch's (correct, total)
+    correct, total = map(sum, zip(*counters))
+    want_acc = 100 * correct / max(total, 1)
+    w, b = _jax_init(jcfg)
+    res = [r for _, _, r in run_ranks(
+        "_rank_probe", tmp_path / "ranks", cfg=pcfg.to_plain(), train=train, val=val,
+        fraction=fraction, probe_init=(w.T, b))]
+    assert 0.0 < want_acc < 100.0
+    for r, params in zip(res, want):
+        assert r["acc"] == want_acc
+        np.testing.assert_allclose(r["weight"], np.asarray(params["w"]).T, rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(r["bias"], np.asarray(params["b"]), rtol=1e-5,
+                                   atol=1e-6)
+    assert not np.allclose(res[0]["weight"], res[1]["weight"])  # own shards
 
 
 def test_probe_batches(tmp_path, monkeypatch):
@@ -324,3 +380,31 @@ def test_evaluate_main_and_trainer_fn_run_finegym(fg_dir, fg_models, tmp_path):
         got = make_trainer_evaluate_fn(None)(trainer, 0)
     assert got == accs  # the same weights, embeddings and probe
     assert len(os.listdir(os.path.join(cfg.LOGDIR, "finegym_eval_trainset"))) == 12
+
+
+@pytest.mark.timeout(300)
+def test_harness_at_two_ranks(fg_dir, fg_models, tmp_path):
+    """The harness at two gloo ranks: each rank's loaders hold half the
+    videos (6 + 2), every video is dumped once under the JAX package's file
+    name and against its dump, both ranks probe the same gathered lists,
+    and their accuracies agree."""
+    jcfg, jmodel, variables, sd, _ = fg_models
+    pcfg = _fg_cfg(port_config, fg_dir, str(tmp_path / "port"))
+    res = [r for _, _, r in run_ranks(
+        "_rank_harness", tmp_path / "ranks", cfg=pcfg.to_plain(), state=sd,
+        vit_name=TEST_VIT, vit_args=((64, DEPTH, 2, 8), {"img_size": S}))]
+    assert [r["shard"] for r in res] == [{"train": 6, "val": 2}] * 2
+    assert res[0]["accs"] == res[1]["accs"] and sorted(res[0]["accs"]) == [0.1, 0.5, 1.0]
+    assert res[0]["lists"] == res[1]["lists"] and len(res[0]["lists"]) == 3
+    for split, n in (("train", 12), ("val", 4)):
+        got = _pickles(os.path.join(pcfg.LOGDIR, f"finegym_eval_{split}set"))
+        assert sorted(res[0]["lists"][0][split == "val"]) == sorted(
+            os.path.join(pcfg.LOGDIR, f"finegym_eval_{split}set", k) for k in got)
+        want_dir = str(tmp_path / f"jax_{split}")
+        jax_finegym.dump_embeddings_dataset(jcfg, jmodel, variables,
+                                            jax_loaders(jcfg, split)[1][0], want_dir)
+        want = _pickles(want_dir)
+        assert sorted(got) == sorted(want) and len(got) == n
+        for name, rec in got.items():
+            np.testing.assert_array_equal(rec["labels"], want[name]["labels"])
+            np.testing.assert_allclose(rec["embs"], want[name]["embs"], atol=EMB_ATOL)

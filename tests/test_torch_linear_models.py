@@ -120,19 +120,17 @@ def test_remat_over_resnet_tail_raises():
 
 def test_mid_epoch_checkpoints_raise():
     """Mid-epoch checkpoints no longer raise (ROADMAP queue 1 item 5 is
-    ported, tests/test_torch_mid_checkpoint.py); what still raises is a
-    FineGym harness across processes, which waits for item 6."""
-    from video_rep_learning_tpu_torch.evaluation import finegym
-
+    ported, tests/test_torch_mid_checkpoint.py), nor does the FineGym
+    harness across processes (item 6, tests/test_torch_finegym.py); what
+    still raises where the trainer reads the config is tensor parallelism,
+    item 6b."""
     cfg = get_cfg()
     cfg.CHECKPOINT.SAVE_EVERY_N_ITERS = 10
     tr = Trainer(cfg, build_loaders=False, device="cpu")
     assert tr.start_iter == 0 and tr.cfg.CHECKPOINT.SAVE_EVERY_N_ITERS == 10
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(torch.distributed, "is_initialized", lambda: True)
-        mp.setattr(torch.distributed, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            finegym.train_linear_probe(cfg, [], [], 1.0, 0, None, "cpu")
+    cfg.PARALLEL.TENSOR_PARALLELISM = 2
+    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
+        Trainer(cfg, build_loaders=False, device="cpu")
 
 
 def test_packed_eval_sweep_raises():

@@ -19,6 +19,9 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
@@ -216,3 +219,15 @@ def test_port_runs_without_jax_flax_sklearn(tmp_path):
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout
+
+
+@pytest.mark.timeout(300)
+def test_two_ranks_train_without_jax_flax_sklearn(tmp_path):
+    from tests.test_torch_parallel import run_ranks
+
+    res = [r for _, _, r in run_ranks("_rank_two_steps_blocked", tmp_path,
+                                      block_jax=True)]
+    for r in res:
+        assert r["loaded"] == [] and all(np.isfinite(r["losses"]))
+    for k, v in res[0]["state"].items():
+        np.testing.assert_array_equal(res[1]["state"][k], v, err_msg=k)

@@ -11,7 +11,8 @@ uint8 frames to L2-normalised per-frame embeddings and the downstream eval
 tasks or the FineGym harness (`python -m video_rep_learning_tpu_torch.evaluate`,
 `.evaluate_finegym`), and training with SCL, TCC, TCN or classification
 with epoch and mid-epoch checkpoints (`python -m
-video_rep_learning_tpu_torch.train`), in a single process.
+video_rep_learning_tpu_torch.train`), on one card or across processes, one
+a card (`parallel/`).
 """
 
 __version__ = "0.2.0"

@@ -16,8 +16,12 @@ the N = B*V*T frame embeddings (reference `algos/scl.py:18-105`):
 `scl_loss_dispatch` is the JAX package's gate (`algos/scl.py:92-143`):
 the fused loss (`ops/scl.py`, the CUDA kernels of `csrc/scl.cu`) with gauss
 positives on a CUDA tensor when VRL_FUSED_SCL is 1, or auto (the default)
-with N >= 8192 frames; else this plain composition. The data-mesh branch
-(a per-rank loss and pmean) waits for DDP.
+with N >= 8192 frames; else this plain composition. Across processes the
+loss is each rank's over its local batch, as the reference's DDP and the
+JAX package's per-shard branch compute it (negatives never cross ranks),
+and DDP's gradient average is the `pmean`; the gate reads the local N.
+VRL_GLOBAL_SCL=1 takes global negatives instead (JAX `:133-143`): every
+rank computes the loss over the gathered embeddings of the global batch.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import os
 import torch
 
 from ..ops.scl import scl_loss_fused
+from ..parallel import all_gather_with_grad, world
 
 FUSED_MIN_FRAMES = 8192
 
@@ -97,7 +102,13 @@ def scl_loss_dispatch(embs, seq_lens, steps, masks, *, temperature,
                       label_varience, positive_type, negative_type):
     """The SCL loss (0-d) through the fused kernels or the plain composition,
     by `use_fused_scl` with VRL_FUSED_SCL read from the environment (0 | 1 |
-    auto, default auto)."""
+    auto, default auto). Under VRL_GLOBAL_SCL=1 across processes, over the
+    ranks' batches gathered in rank order: the gather's backward sums each
+    rank's rows over the ranks, and DDP's average then leaves every
+    parameter the gradient of the global loss."""
+    if os.environ.get("VRL_GLOBAL_SCL", "0") == "1" and world()[0] > 1:
+        embs, seq_lens, steps, masks = (all_gather_with_grad(t) for t in
+                                        (embs, seq_lens, steps, masks))
     n = embs.shape[0] * embs.shape[1] * embs.shape[2]
     flag = os.environ.get("VRL_FUSED_SCL", "auto")  # 0 | 1 | auto
     if use_fused_scl(positive_type, embs.device.type, n, flag):

@@ -16,13 +16,19 @@ then, over the B(B-1)T rows:
   divided by the sequence length under NORMALIZE_INDICES; _var adds the
   predicted variance, log(var) unclamped, as the JAX package.
 All of it in fp32 (the JAX package's products run at Precision.HIGHEST; the
-port leaves TF32 off, PyTorch's default for matmuls). The per-rank pair
-list of the JAX data-parallel branch comes with DDP.
+port leaves TF32 off, PyTorch's default for matmuls). Across processes the
+pairs are formed per rank over its local batch when it holds at least 2
+sequences (the reference's DDP; JAX `algos/tcc.py:133-157`, per shard +
+pmean, the mean being DDP's gradient average); with fewer, over the
+ranks' sequences gathered in rank order, the JAX package's fallback to the
+global pair list.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel import all_gather_with_grad, world
 
 
 def _scaled_similarity(e1, e2, similarity_type: str, temperature: float):
@@ -123,4 +129,7 @@ class TCC:
         embs = model(videos, num_frames,
                      video_masks=batch["video_masks"].reshape(videos.shape[0], 1, -1),
                      backbone_warmup_active=backbone_warmup_active)
+        if world()[0] > 1 and embs.shape[0] < 2:
+            embs, seq_lens, steps = (all_gather_with_grad(t) for t in
+                                     (embs, seq_lens, steps))
         return tcc_loss(embs, seq_lens, steps, **self.kw)

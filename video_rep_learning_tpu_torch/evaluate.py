@@ -7,11 +7,14 @@ evaluation once.
         [--device cuda] [--opts KEY VALUE ...]
 
 The flags are the root `evaluate.py`'s, plus `--device` (default cuda). The
-port's counterpart of that script; single-process for now. A FineGym config
-(DATASETS[0] finegym) runs the FineGym harness (`evaluation/finegym.py`:
-per-video embedding pickles, then the linear probe per fraction) in place of
-the embedding tasks; `python -m video_rep_learning_tpu_torch.evaluate_finegym`
-is the same entry point under the reference's name.
+port's counterpart of that script. A FineGym config (DATASETS[0] finegym)
+runs the FineGym harness (`evaluation/finegym.py`: per-video embedding
+pickles, then the linear probe per fraction) in place of the embedding
+tasks; `python -m video_rep_learning_tpu_torch.evaluate_finegym` is the same
+entry point under the reference's name. With `--coordinator HOST:PORT
+--num_processes N --process_id R` (one process per card, as for training)
+the FineGym harness runs on every rank over its shard, and the other tasks
+on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from .data import construct_dataloader
 from .evaluation import finegym, get_tasks
 from .evaluation.evaluate import evaluate_once
 from .models import build_model, load_checkpoint
+from .parallel import is_root_proc, process_group, synchronize
 from .parser import load_config, parse_args, setup_train_dir
 from .utils import SummaryWriter
 
@@ -53,32 +57,41 @@ def main(argv=None):
     args, device = parse_cli(argv)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch sees no CUDA device")
-    cfg = load_config(args)
-    setup_train_dir(cfg, cfg.LOGDIR, True, args.tempcfg)
-    cfg.PATH_TO_DATASET = os.path.join(args.workdir, cfg.PATH_TO_DATASET)
+    with process_group(args.coordinator, args.num_processes, args.process_id,
+                       device) as device:
+        cfg = load_config(args)
+        setup_train_dir(cfg, cfg.LOGDIR, True, args.tempcfg)
+        cfg.PATH_TO_DATASET = os.path.join(args.workdir, cfg.PATH_TO_DATASET)
 
-    logging_utils.setup_logging(cfg.LOGDIR)
-    summary_writer = SummaryWriter(os.path.join(cfg.LOGDIR, "eval_logs"))
-    logger.info("Evaluate with config:")
-    logger.info(pprint.pformat(cfg.to_plain()))
+        logging_utils.setup_logging(cfg.LOGDIR)
+        summary_writer = (SummaryWriter(os.path.join(cfg.LOGDIR, "eval_logs"))
+                          if is_root_proc() else None)
+        logger.info("Evaluate with config:")
+        logger.info(pprint.pformat(cfg.to_plain()))
 
-    model = build_model(cfg, device)
-    epoch = load_checkpoint(model, cfg.LOGDIR)
-    train_loaders = build_eval_loaders(cfg, "train")
-    val_loaders = build_eval_loaders(cfg, "val")
+        model = build_model(cfg, device)
+        epoch = load_checkpoint(model, cfg.LOGDIR)
 
-    t0 = time.time()
-    if cfg.DATASETS[0] == "finegym":
-        metrics = finegym.evaluate_loaders(cfg, model, train_loaders[0],
-                                           val_loaders[0], epoch, summary_writer,
-                                           device)
-    else:
-        iterator_tasks, embedding_tasks = get_tasks(cfg)
-        metrics = evaluate_once(cfg, model, train_loaders, val_loaders,
-                                iterator_tasks, embedding_tasks, epoch,
-                                summary_writer, device)
-    print("evaluate_once done in (m): " + str((time.time() - t0) / 60.0))
-    summary_writer.close()
+        metrics = None
+        # the FineGym harness runs on every rank; the tasks, whose loaders
+        # are not sharded, on rank 0
+        if cfg.DATASETS[0] == "finegym" or is_root_proc():
+            train_loaders = build_eval_loaders(cfg, "train")
+            val_loaders = build_eval_loaders(cfg, "val")
+            t0 = time.time()
+            if cfg.DATASETS[0] == "finegym":
+                metrics = finegym.evaluate_loaders(cfg, model, train_loaders[0],
+                                                   val_loaders[0], epoch,
+                                                   summary_writer, device)
+            else:
+                iterator_tasks, embedding_tasks = get_tasks(cfg)
+                metrics = evaluate_once(cfg, model, train_loaders, val_loaders,
+                                        iterator_tasks, embedding_tasks, epoch,
+                                        summary_writer, device)
+            print("evaluate_once done in (m): " + str((time.time() - t0) / 60.0))
+        synchronize()
+        if summary_writer is not None:
+            summary_writer.close()
     return metrics
 
 

@@ -59,7 +59,11 @@ def evaluate_once(cfg, model, train_emb_loaders, val_emb_loaders,
 def make_trainer_evaluate_fn(summary_writer):
     """Adapter for `Trainer.fit(evaluate_fn=...)`: runs `evaluate_once` (or
     the FineGym harness) on the trainer's model and embedding loaders
-    (`train.py:327-334`)."""
+    (`train.py:327-334`). Across processes the FineGym harness runs on every
+    rank; the other tasks on rank 0 alone (their loaders are not sharded),
+    the other ranks waiting at a barrier (JAX `evaluation/evaluate.py:60-80`).
+    Returns the metrics, None on the ranks that waited."""
+    from ..parallel import is_root_proc, synchronize
     from . import get_tasks
 
     def fn(trainer, epoch):
@@ -67,11 +71,15 @@ def make_trainer_evaluate_fn(summary_writer):
             from .finegym import evaluate_once as fg_evaluate_once
 
             return fg_evaluate_once(trainer, epoch, summary_writer)
-        iterator_tasks, embedding_tasks = get_tasks(trainer.cfg)
-        trainer.model.eval()
-        return evaluate_once(trainer.cfg, trainer.model, trainer.train_emb_loader,
-                             trainer.val_emb_loader, iterator_tasks,
-                             embedding_tasks, epoch, summary_writer,
-                             trainer.device)
+        metrics = None
+        if is_root_proc():
+            iterator_tasks, embedding_tasks = get_tasks(trainer.cfg)
+            trainer.model.eval()
+            metrics = evaluate_once(trainer.cfg, trainer.model, trainer.train_emb_loader,
+                                    trainer.val_emb_loader, iterator_tasks,
+                                    embedding_tasks, epoch, summary_writer,
+                                    trainer.device)
+        synchronize()
+        return metrics
 
     return fn

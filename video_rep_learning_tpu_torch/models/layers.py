@@ -10,6 +10,11 @@ ReLU]` groups.
 
 Self-attention with a key mask goes through `ops.attention.mha_with_flash`
 on every length: the hand-written kernel on CUDA, its plain version on CPU.
+
+Across processes, `convert_sync_batchnorm` makes the BatchNorms that run on
+batch statistics normalise over the global batch (the reference's
+SyncBatchNorm, `train.py:283`; what the JAX package's BN gets from a
+batch sharded over the mesh).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import mha_with_flash
+from ..parallel.mesh import world
 
 # Large-negative mask fill of `scaled_dot_attention`; finite so bf16 rows
 # never turn NaN, and equal to -inf after the softmax for any row with one
@@ -253,6 +259,97 @@ class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
 
 class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
     pass
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of x (N, C, ...) over the batch of every rank,
+    in fp32. The forward all-reduces [sum x, sum x^2, count] a channel and
+    takes flax's statistics, mean = E[x] and the biased var = max(E[x^2] -
+    E[x]^2, 0) (the JAX package's BatchNorm over a global batch); the
+    backward all-reduces [sum dy, sum dy x_hat], which the gradient through
+    the global statistics needs. The weight and bias gradients stay local:
+    DDP averages them. Returns (y in x's dtype, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        C = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, C) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                           xf.new_full((1,), float(x.numel() // C))])
+        torch.distributed.all_reduce(stats)
+        n = stats[2 * C:]
+        mean = stats[:C] / n
+        var = torch.clamp(stats[C:2 * C] / n - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = (xf - mean.view(shape)) * (invstd * weight).view(shape) + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        C = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, C) + (1,) * (x.dim() - 2)
+        gyf = gy.float()
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        sums = torch.cat([gyf.sum(dims), (gyf * xhat).sum(dims)])
+        g_bias, g_weight = sums[:C].clone(), sums[C:].clone()
+        torch.distributed.all_reduce(sums)
+        gx = (invstd * weight).view(shape) * (
+            gyf - (sums[:C] / n).view(shape) - xhat * (sums[C:] / n).view(shape))
+        return gx.to(x.dtype), g_weight, g_bias, None
+
+
+class _GlobalStats:
+    """Train-mode statistics over every rank's batch (`_GlobalBatchNorm`),
+    running statistics by flax's rule with the global mean and biased
+    variance. In eval mode, or with one process, the module's own path: a
+    world-1 run is bit-identical to a run without a process group."""
+
+    def forward(self, x):
+        if not self.training or world()[0] == 1:
+            return super().forward(x)
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class SyncBatchNorm1d(_GlobalStats, BatchNorm1d):
+    pass
+
+
+class SyncBatchNorm2d(_GlobalStats, BatchNorm2d):
+    pass
+
+
+class SyncBatchNorm3d(_GlobalStats, BatchNorm3d):
+    pass
+
+
+_SYNCED = {BatchNorm1d: SyncBatchNorm1d, BatchNorm2d: SyncBatchNorm2d,
+           BatchNorm3d: SyncBatchNorm3d}
+
+
+def convert_sync_batchnorm(model: nn.Module) -> nn.Module:
+    """Swap the class of every BatchNorm that runs on batch statistics for
+    its synced counterpart, in place (the same parameters and buffers): the
+    FC+BN stacks, the projection head's, `ConvEmbed`'s BatchNorm3d and a
+    trainable ResNet tail's. The frozen trunk (`backbone.*`) keeps its
+    eval-mode BN (`CARLModel.train`, also under TRAIN_BASE train_all) and
+    stays as it is."""
+    for name, module in model.named_modules():
+        sync = _SYNCED.get(type(module))
+        if sync is not None and not name.startswith("backbone."):
+            module.__class__ = sync
+    return model
 
 
 class FCBNStack(nn.Sequential):

@@ -276,13 +276,18 @@ def ssl_matrices(boxes, sigmas, H: int, W: int, S: int):
 
 
 def sample_ssl_batch(gen, B: int, V: int, H: int, W: int, dims,
-                     params: AugmentParams):
+                     params: AugmentParams, skip: int = 0):
     """All random values of one step's SSL augmentation, drawn on the host
     from `gen`, view by view (its scalars, then its crop box), and the
     matrices built from them: a dict of CPU tensors fscal (BV, 8), orders
     (BV, 4), boxes (BV, 4), sigmas (BV,) and those of `ssl_matrices`.
     `dims` (B, 2) is each clip's true (h, w) inside the (H, W) canvas, or
-    None for the whole canvas."""
+    None for the whole canvas. The values of `skip` clips are drawn first
+    and dropped (the lower ranks' share of a global batch); a draw takes
+    the same count of values whatever the clip's dims."""
+    for _ in range(skip * V):
+        _sample_ssl_scalars(gen, params)
+        sample_rrc_uniforms(gen)
     fscal, orders, sigmas, boxes = [], [], [], []
     for b in range(B):
         h_true, w_true = (H, W) if dims is None else (float(dims[b][0]),
@@ -400,7 +405,7 @@ class SupervisedParams(NamedTuple):
 
 
 def sample_supervised_batch(gen, B: int, H: int, W: int, dims,
-                            params: SupervisedParams):
+                            params: SupervisedParams, skip: int = 0):
     """All random values of one step's supervised augmentation, drawn on the
     host from `gen` clip by clip: the brightness, contrast, hue and
     saturation factors (factors 1 + U[-v, v], hue U[-v, v]; each drawn
@@ -410,9 +415,16 @@ def sample_supervised_batch(gen, B: int, H: int, W: int, dims,
     contrast, hue, saturation], boxes (B, 4) (top, left, height, width),
     flips (B,) bool, dims (B, 2), and the crop's resample matrices ry
     (B, S, H), rx (B, W, S). `dims` (B, 2) is each clip's true (h, w) inside
-    the (H, W) canvas, or None for the whole canvas."""
+    the (H, W) canvas, or None for the whole canvas. The values of `skip`
+    clips are drawn first and dropped, as in `sample_ssl_batch`."""
     p = params
     S = p.image_size
+    for _ in range(skip):
+        for _ in range(4):  # the factors
+            _uniform(gen, 0.0, 1.0)
+        if p.random_crop:
+            sample_rrc_uniforms(gen)
+        _uniform(gen, 0.0, 1.0)  # the flip
     factors, boxes, flips, true_dims, ry, rx = [], [], [], [], [], []
     for b in range(B):
         h, w = (H, W) if dims is None else (float(dims[b][0]), float(dims[b][1]))

@@ -6,9 +6,9 @@ EVAL batch/frames forced equal to TRAIN, and the "frozen config" semantics —
 a ``config.yml`` snapshot written to LOGDIR on first run and *preferred over
 the passed config* on restart unless ``--tempcfg``.
 
-The port's own copy of `video_rep_learning_tpu/parser.py`, without the JAX
-package's multi-host flags (`--coordinator --num_processes --process_id`):
-the port's CLIs are single-process for now.
+The port's own copy of `video_rep_learning_tpu/parser.py`, with its
+multi-process flags `--coordinator HOST:PORT --num_processes N
+--process_id R` (one process per card, `parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import os
 
 from .config import ConfigNode, apply_opts, get_cfg, load_yaml_into
 from .logging_utils import get_logger
+from .parallel import is_root_proc, synchronize
 
 logger = get_logger(__name__)
 
@@ -35,6 +36,11 @@ def parse_args(argv=None):
                    help="Dotted KEY VALUE config overrides")
     p.add_argument("--tempcfg", action="store_true", default=False,
                    help="Ignore any frozen config.yml in logdir; use the passed config.")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="HOST:PORT of rank 0's process-group rendezvous; with "
+                        "it, this process is rank --process_id of --num_processes.")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     return p.parse_args(argv)
 
 
@@ -59,7 +65,17 @@ def load_config(args) -> ConfigNode:
 
 def setup_train_dir(cfg: ConfigNode, logdir: str, continue_train: bool = False,
                     tempcfg: bool = False) -> None:
-    """Create LOGDIR and freeze/restore ``config.yml`` (`utils/parser.py:106-131`)."""
+    """Create LOGDIR and freeze/restore ``config.yml`` (`utils/parser.py:106-131`).
+    Across processes rank 0 does so first; the others then read the file
+    it froze."""
+    if is_root_proc():
+        _setup_train_dir(cfg, logdir, tempcfg)
+    synchronize()
+    if not is_root_proc():
+        _setup_train_dir(cfg, logdir, tempcfg)
+
+
+def _setup_train_dir(cfg: ConfigNode, logdir: str, tempcfg: bool) -> None:
     import yaml
 
     os.makedirs(logdir, exist_ok=True)

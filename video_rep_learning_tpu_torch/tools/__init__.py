@@ -11,4 +11,8 @@ On the card every row holds the kernel against its plain version and times
 the kernel, the plain version and, where one PyTorch call computes the same
 function, that call, with CUDA events. On the CPU the wrappers take their
 plain versions and nothing is timed.
+
+`ddp_cards` is no micro-benchmark: it times a config's warm training steps
+at each world size, one process a card over NCCL (gloo on the CPU), and
+checks that the ranks stay bit-identical.
 """

@@ -15,6 +15,9 @@ same state dict. Only the newest is kept, and an epoch save removes them all.
 along. A mid file's name does not match the epoch pattern, so the
 evaluation CLI (`models/weights.py::load_checkpoint`) sees epoch
 checkpoints only.
+
+Across processes only rank 0 writes (the ranks' states are equal); the
+writers return the path it writes on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from ..logging_utils import get_logger
 from ..models.weights import latest_checkpoint, load_model_state, reference_state
+from ..parallel import is_root_proc
 
 logger = get_logger(__name__)
 
@@ -70,6 +74,8 @@ def _write(path: str, model, optimizer, epoch: int, cfg=None):
 def save_checkpoint(logdir: str, model, optimizer, epoch: int, cfg=None) -> str:
     """The epoch checkpoint; it obsoletes every mid-epoch one."""
     path = os.path.join(checkpoint_dir(logdir), f"checkpoint_epoch_{epoch:05d}.pth")
+    if not is_root_proc():
+        return path
     _write(path, model, optimizer, epoch, cfg)
     _prune_mid_checkpoints(logdir)
     logger.info("Saving epoch %d to: %s", epoch, path)
@@ -82,6 +88,8 @@ def save_mid_checkpoint(logdir: str, model, optimizer, epoch: int, next_iter: in
     mid checkpoints go."""
     path = os.path.join(checkpoint_dir(logdir),
                         f"checkpoint_iter_{epoch:05d}_{next_iter:07d}.pth")
+    if not is_root_proc():
+        return path
     _write(path, model, optimizer, epoch, cfg)
     _prune_mid_checkpoints(logdir, keep_path=path)
     logger.info("Saving mid-epoch checkpoint (epoch %d, iter %d) to: %s",

@@ -39,7 +39,17 @@ data wait, 1 = H2D, 2 = step dispatch, 5 = logging).
   epoch-pure LR then make it equal to an uninterrupted run bit for bit.
 - The val epoch logs its last batch's augmented views as video panels
   (`_log_val_video_panels`), in a single process only.
-Left for a later slice: multi-process DDP.
+- Across processes (`parallel/`, a process group joined before the trainer
+  is built; JAX `trainer.py:57-79`), each rank runs TRAIN.BATCH_SIZE clips
+  of its own shard: the BatchNorms that run on batch statistics become
+  global (`convert_sync_batchnorm`), and `DistributedDataParallel` wraps
+  the model and averages the gradients before the optimizer clips them.
+  The rank's augmentation values are its rows of a draw for the global
+  batch (the same views as one process over that batch), its dropout seed
+  has the rank folded in (rank 0 keeps the one-process seed), the logged
+  losses are the ranks' means, and only rank 0 writes checkpoints,
+  summaries and panels. With one process and no process group the model
+  is not wrapped.
 """
 
 from __future__ import annotations
@@ -49,16 +59,20 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from ..algos import get_algo
 from ..config import ConfigNode
 from ..data import construct_dataloader, unnorm
 from ..logging_utils import get_logger
 from ..models import build_model, set_trainable
+from ..models.layers import convert_sync_batchnorm
 from ..models.weights import load_model_state
 from ..ops.augment import (AugmentParams, SupervisedParams, sample_ssl_batch,
                            sample_supervised_batch, ssl_batch_augment,
                            supervised_batch_augment)
+from ..parallel import (all_reduce_sum, check_parallel_config, synchronize,
+                        world)
 from .checkpoint import resume, save_checkpoint, save_mid_checkpoint
 from .optimizer import Optimizer, learning_rate_for_epoch
 
@@ -68,9 +82,11 @@ TRAIN_STREAM, VAL_STREAM, DROPOUT_STREAM = 0, 1, 2
 BATCH_KEYS = ("video_masks", "seq_lens", "chosen_steps", "labels")
 
 
-def step_seed(seed: int, stream: int, epoch: int, it: int) -> int:
-    """A 63-bit seed for one step of one stream, independent across steps."""
-    state = np.random.SeedSequence([seed, stream, epoch, it]).generate_state(2)
+def step_seed(seed: int, stream: int, epoch: int, it: int, rank: int = 0) -> int:
+    """A 63-bit seed for one step of one stream, independent across steps
+    and ranks; rank 0's is the one-process seed."""
+    entropy = [seed, stream, epoch, it] + ([rank] if rank else [])
+    state = np.random.SeedSequence(entropy).generate_state(2)
     return int(state[0]) << 31 ^ int(state[1])
 
 
@@ -79,16 +95,31 @@ class Trainer:
 
     def __init__(self, cfg: ConfigNode, summary_writer=None, no_eval: bool = False,
                  build_loaders: bool = True, device="cuda"):
+        check_parallel_config(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
+        self.world, self.rank = world()
         torch.manual_seed(cfg.RNG_SEED)  # the initial weights
         self.model = build_model(cfg, self.device)
         if cfg.MODEL.PRETRAINED_CHECKPOINT:
             self._warm_start(str(cfg.MODEL.PRETRAINED_CHECKPOINT))
+        distributed = torch.distributed.is_initialized()
+        if distributed:
+            convert_sync_batchnorm(self.model)
         self.algo = get_algo(cfg)
         self.optimizer = Optimizer(
             set_trainable(self.model, cfg.MODEL.TRAIN_BASE,
                           classifier=cfg.TRAINING_ALGO == "classification"), cfg)
+        # the train step's forward; DDP averages the gradients in the
+        # backward. A trainable tensor may get no gradient on a step (the
+        # tail behind TRAIN.BACKBONE_WARMUP's stopped gradient): DDP looks
+        # for those each step and leaves their gradient None, as one
+        # process does (`train.py:285-286` passes the same flag).
+        self.net = self.model
+        if distributed:
+            self.net = DistributedDataParallel(
+                self.model, device_ids=[self.device] if self.device.type == "cuda"
+                else None, broadcast_buffers=False, find_unused_parameters=True)
         self.summary_writer = summary_writer
         self.no_eval = no_eval
         self.train_loader = self.train_emb_loader = None
@@ -144,16 +175,21 @@ class Trainer:
 
     def augment(self, batch, dev_batch, stream: int, epoch: int, it: int):
         """The step's augmentation, its random values drawn from the step's
-        generator: two SSL views a clip, or the supervised recipe."""
+        generator: two SSL views a clip, or the supervised recipe. Rank r
+        takes its rows of a draw for the global batch (the lower ranks'
+        clips are drawn and dropped)."""
         videos = dev_batch["videos"]
         gen = torch.Generator().manual_seed(
             step_seed(self.cfg.RNG_SEED, stream, epoch, it))
+        B = videos.shape[0]
         if self.cfg.SSL:
-            B, V, _, H, W, _ = videos.shape
-            sampled = sample_ssl_batch(gen, B, V, H, W, batch.get("dims"), self.aug)
+            _, V, _, H, W, _ = videos.shape
+            sampled = sample_ssl_batch(gen, B, V, H, W, batch.get("dims"), self.aug,
+                                       skip=self.rank * B)
             return ssl_batch_augment(videos, sampled, self.aug)
-        B, _, H, W, _ = videos.shape
-        sampled = sample_supervised_batch(gen, B, H, W, batch.get("dims"), self.aug)
+        _, _, H, W, _ = videos.shape
+        sampled = sample_supervised_batch(gen, B, H, W, batch.get("dims"), self.aug,
+                                          skip=self.rank * B)
         return supervised_batch_augment(videos, sampled, self.aug)
 
     def backbone_warmup_active(self, epoch: int) -> bool:
@@ -173,8 +209,9 @@ class Trainer:
         zeroed."""
         self.model.train()
         videos = self.augment(batch, dev_batch, TRAIN_STREAM, epoch, it)
-        torch.manual_seed(step_seed(self.cfg.RNG_SEED, DROPOUT_STREAM, epoch, it))
-        loss = self.algo.compute_loss(self.model, dict(dev_batch, videos=videos),
+        torch.manual_seed(step_seed(self.cfg.RNG_SEED, DROPOUT_STREAM, epoch, it,
+                                    self.rank))
+        loss = self.algo.compute_loss(self.net, dict(dev_batch, videos=videos),
                                       backbone_warmup_active=warmup_active)["loss"]
         self.optimizer.zero_grad()
         loss.backward()
@@ -215,8 +252,8 @@ class Trainer:
             t1 = time.time()
             if cur_iter % cfg.LOGGING.REPORT_INTERVAL == 0:
                 # reading the value waits for this step
-                logger.info("iter %d, training loss: %.3f",
-                            data_size * epoch + cur_iter, float(losses[-1]))
+                logger.info("iter %d, training loss: %.3f", data_size * epoch + cur_iter,
+                            self._rank_mean(float(losses[-1])))
             if save_n > 0 and (cur_iter + 1) % save_n == 0:
                 save_mid_checkpoint(cfg.LOGDIR, self.model, self.optimizer, epoch,
                                     cur_iter + 1, cfg)
@@ -224,6 +261,7 @@ class Trainer:
             t1 = time.time()
 
         total = float(torch.stack(losses).sum().cpu()) / data_size if losses else 0.0
+        total = self._rank_mean(total)
         # per-iteration marker means; marker 2 is step dispatch (the device
         # finishes the steps by the read above)
         self.last_markers = {i: tmt[i] / max(tmc, 1) for i in range(10)
@@ -254,20 +292,24 @@ class Trainer:
                                           dict(dev_batch, videos=videos))["loss"]
             losses.append(torch.where(torch.isnan(loss), 0.0, loss))
         total = float(torch.stack(losses).sum().cpu()) / data_size if losses else 0.0
+        total = self._rank_mean(total)
         self._log_val_video_panels(videos, names)
         if self.summary_writer is not None:
             self.summary_writer.add_scalar("val/loss", total, epoch)
         logger.info("epoch %d, val loss: %.3f", epoch, total)
         return {"loss": total}
 
+    def _rank_mean(self, value: float) -> float:
+        """A host value's mean over the ranks (the JAX package's loss is
+        the global batch's)."""
+        return all_reduce_sum(value) / self.world if self.world > 1 else value
+
     def _log_val_video_panels(self, videos, names):
         """Video panels of the last val batch's augmented views
         (`train.py:217-224`): its first clip, every second frame,
         unnormalised, at 4 fps; one panel a view under SSL. A single process
-        only."""
-        if (self.summary_writer is None or videos is None
-                or (torch.distributed.is_initialized()
-                    and torch.distributed.get_world_size() != 1)):
+        only, as in the reference."""
+        if self.summary_writer is None or videos is None or self.world != 1:
             return
         # fp32 at the host boundary: under USE_AMP the frames are bf16
         item = videos[0].float().cpu().numpy()  # (V, T, S, S, 3) | (T, S, S, 3)
