@@ -3,9 +3,10 @@
 kernels from the checkout, holds each against its plain PyTorch version,
 drives the CARL embedding and training paths, the MV-Former embedding and
 training paths, the supervised paths, late fusion over a ViT, the FineGym
-harness, a mid-epoch resume and data parallelism (a world of 1 over NCCL,
-two ranks sharing the card over gloo) end to end at full model width, and
-compares the card with the CPU on each.
+harness, a mid-epoch resume, data parallelism (a world of 1 over NCCL,
+two ranks sharing the card over gloo), the trainer's device prefetch and
+the frame-packed and packed eval sweeps end to end at full model width,
+and compares the card with the CPU on each.
 
     python3 chip_smoke.py
 
@@ -156,6 +157,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    fg99_mvf's FineGym harness at two ranks (each video dumped once, one
    file list, one accuracy). Two ranks on one card show correctness and
    overhead, not scaling.
+18. the trainer's device prefetch and the eval sweeps: (a)
+   scl_transformer_config (CARL) and tcc_transformer_config each through
+   two trainers from one seed, at DATA.DEVICE_PREFETCH 0 and 2, their epochs
+   in turns (a warm one, a timed one, a profiled one: at least 6 warm steps
+   a depth), #1 / #3 / #12 launched exactly at both depths, every tensor and
+   optimizer moment bit-identical between the depths after the last epoch;
+   ms per step, the busy share of the profiled epoch, the batch's H2D in the
+   step at depth 0 and on the copy stream at depth 2 (GB/s); pouring_mvf's
+   epochs at depth 2, 0, 2; (b) the CARL and pouring_mvf val sweeps under
+   USE_AMP per-video, frame-packed (VRL_EVAL_FLAT=1) and packed
+   (EVAL.PACK_VIDEOS 2 and 4), each against per-video within SWEEP_TOL,
+   with exact #1 / #4 launches and frames/s; the same in fp32 on three cut
+   videos with chunks and blocks that split them; #1 masked at a packed
+   group's shape against its plain version; fg99_mvf's harness dump with
+   EVAL.FLAT_EXTRACT on against off; (c) `tools/bench_eval.py`'s ragged run
+   (65-310 frames, FRAMES_PER_BATCH 2000) in each mode for both families.
 Phase 3 also holds #7 (matmul + GELU) and #9 (the LN-MLP half-block)
 against their plain versions, times #9 at 480 frames too, and checks the
 six ViT kernels' gradients (the kernel forward, the plain backward chunked
@@ -3453,6 +3470,450 @@ def phase_two_ranks(data_root, card):
     return launches, everyone
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the trainer's device prefetch, the frame-packed and packed eval
+# sweeps
+# ---------------------------------------------------------------------------
+
+PREFETCH_CFGS = {"CARL": CFG_FILE,
+                 "tcc_transformer": SUP_CFGS["tcc_transformer_config"]}
+# epochs a depth, the first of them warming up: CARL 6 steps an epoch (1
+# clip), tcc_transformer 3 (2 clips); then one profiled epoch a depth, so
+# at least 6 warm steps a depth
+PREFETCH_EPOCHS = {"CARL": 2, "tcc_transformer": 2}
+# the sweeps against the per-video sweep, max |embedding difference| of the
+# unit-norm embeddings. fp32 (USE_AMP off, TF32 off): the CPU tests'
+# tolerance (tests/test_torch_eval_sweeps.py, the JAX package's own 2e-6),
+# the same per-frame math on blocks of another size. Under USE_AMP the
+# trunk computes in bf16: where another block size makes cuDNN (ResNet) or
+# cuBLAS (the ViT's fc2) sum in another order, a value may round to the
+# neighbouring bf16 value, one step of 2^-8 of it; the fp32 head carries a
+# relative change of its input into the unit-norm embedding at the same
+# order, so one such step at unit scale, 2^-8 (for scale: rounding fc2's
+# input at another point in all 12 ViT blocks, VRL_FUSED_MLP=1, moved the
+# MV-Former embeddings by 1.364e-4 in an earlier run of phase 7)
+SWEEP_TOL = {torch.float32: 2e-6, torch.bfloat16: 2.0 ** -8}
+SWEEP_MODES = {"per_video": ("0", 1), "flat": ("1", 1), "packed2": ("0", 2),
+               "packed4": ("0", 4)}
+
+
+def _state_tensors(trainer):
+    """Every tensor of the model's state and the optimizer's moments."""
+    opt = trainer.optimizer
+    return ([(n, t) for n, t in trainer.model.state_dict().items()]
+            + [(f"mu.{i}", t) for i, t in enumerate(opt.mu)]
+            + [(f"nu.{i}", t) for i, t in enumerate(opt.nu)])
+
+
+def profile_epoch(trainer, epoch):
+    """One epoch under torch.profiler: (wall s, kernel s, host-to-device copy
+    s) on the card; its busy share is kernels over wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        trainer.train_one_epoch(epoch)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    h2d = sum(e.self_device_time_total for e in events if "HtoD" in e.key) / 1e6
+    busy = sum(e.self_device_time_total for e in events) / 1e6 - h2d
+    return wall, busy, h2d
+
+
+def h2d_in_step_ms(trainer, batch, reps=3):
+    """The serial copy's device time on the compute stream (CUDA events
+    around `device_batch`), the mean of `reps`."""
+    spans = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        trainer.device_batch(batch)
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    return sum(spans) / reps
+
+
+def prefetch_pair(name, data_root, card):
+    """18a: `name`'s trainer at DATA.DEVICE_PREFETCH 0 and 2 (two trainers
+    from the same seed), their epochs in turns; launches exact and equal,
+    every tensor and optimizer moment bit-identical after the last epoch.
+    Returns (launches of the depth-2 run, numbers)."""
+    from video_rep_learning_tpu_torch.train import Trainer
+
+    cfg_file = PREFETCH_CFGS[name]
+    trainers, launches, times, markers = {}, {}, {0: [], 2: []}, {}
+    for depth in (0, 2):
+        cfg = _ddp_cfg(cfg_file, data_root, ["DATA.DEVICE_PREFETCH", str(depth)])
+        torch.manual_seed(SEED)
+        trainers[depth] = Trainer(cfg, no_eval=True, device="cuda")
+        launches[depth] = {}
+    steps = len(trainers[0].train_loader)
+    layers = trainers[0].cfg.MODEL.EMBEDDER_MODEL.NUM_LAYERS
+    for epoch in range(PREFETCH_EPOCHS[name]):
+        for depth, tr in trainers.items():
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            tr.train_one_epoch(epoch)
+            torch.cuda.synchronize()
+            if epoch:  # the first epoch warms up
+                times[depth].append((time.time() - t0) / steps * 1e3)
+            _add(launches[depth], _read_launches())
+            markers[depth] = dict(tr.last_markers)
+    copy_ms = trainers[2].prefetcher.h2d_ms()
+    profiled = {}
+    for depth, tr in trainers.items():
+        _reset_launches()
+        profiled[depth] = profile_epoch(tr, PREFETCH_EPOCHS[name])
+        _add(launches[depth], _read_launches())
+    from video_rep_learning_tpu_torch.train.trainer import BATCH_KEYS
+
+    batch = next(iter(trainers[0].train_loader))
+    in_step = h2d_in_step_ms(trainers[0], batch)
+    nbytes = sum(np.asarray(batch[k]).nbytes for k in ("videos",) + BATCH_KEYS
+                 if k in batch)
+
+    epochs = PREFETCH_EPOCHS[name] + 1
+    want = {"flash_attn_fwd": layers * steps * epochs,
+            "flash_attn_bwd": layers * steps * epochs,
+            "crop_photometric": steps * epochs if trainers[0].cfg.SSL else 0}
+    for depth in (0, 2):
+        got = {k: launches[depth][k] for k in want}
+        if got != want:
+            raise AssertionError(f"18a {name} depth {depth}: launches {got}, want {want}")
+    same = diff = 0
+    state0, state2 = _state_tensors(trainers[0]), _state_tensors(trainers[2])
+    for (n, a), (_, b) in zip(state0, state2):
+        if torch.equal(a, b):
+            same += 1
+        else:
+            diff += 1
+            log(f"18a {name}: {n} differs between depth 0 and depth 2")
+    clips = trainers[0].cfg.TRAIN.BATCH_SIZE
+    nums = {"ms_per_step": {d: times[d] for d in times},
+            "busy_share": {d: profiled[d][1] / profiled[d][0] for d in profiled},
+            "profiled_ms_per_step": {d: profiled[d][0] / steps * 1e3 for d in profiled},
+            "h2d_ms": {"depth0_in_step": in_step,
+                       "depth2_copy_stream": sum(copy_ms) / max(len(copy_ms), 1)},
+            "h2d_GBps": {"depth0_pageable": nbytes / in_step / 1e6,
+                         "depth2_pinned": nbytes / (sum(copy_ms) / max(len(copy_ms), 1))
+                         / 1e6 if copy_ms else None},
+            "h2d_device_ms_per_step_profiled": {d: profiled[d][2] / steps * 1e3
+                                                for d in profiled},
+            "markers": markers, "batch_MB": nbytes / 1e6}
+    log(f"18a {name} ({steps} steps an epoch of {clips} clip(s), "
+        f"{PREFETCH_EPOCHS[name] - 1} timed epochs a depth in turns, one profiled): "
+        + "; ".join(
+            f"depth {d}: {', '.join(f'{t:.1f}' for t in times[d])} ms/step "
+            f"({clips / (sum(times[d]) / len(times[d])) * 1e3:.2f} clips/s), profiled "
+            f"epoch {nums['profiled_ms_per_step'][d]:.1f} ms/step, busy "
+            f"{nums['busy_share'][d] * 100:.1f}%, H2D on the card "
+            f"{nums['h2d_device_ms_per_step_profiled'][d]:.2f} ms/step, markers "
+            f"{json.dumps({k: round(v, 4) for k, v in markers[d].items()})}"
+            for d in (0, 2))
+        + f"; the batch's {nbytes / 1e6:.1f} MB: {in_step:.2f} ms in the step at depth 0 "
+        f"({nums['h2d_GBps']['depth0_pageable']:.1f} GB/s pageable), "
+        f"{nums['h2d_ms']['depth2_copy_stream']:.2f} ms on the copy stream at depth 2 "
+        f"({nums['h2d_GBps']['depth2_pinned'] or 0:.1f} GB/s pinned); launches "
+        f"{json.dumps(want)} at both depths; {same} tensors and moments bit-identical, "
+        f"{diff} differ, on {card}")
+    if diff or not same:
+        raise AssertionError(f"18a {name}: depth 0 and depth 2 disagree")
+    del trainers
+    torch.cuda.empty_cache()
+    return launches[2], nums
+
+
+def prefetch_mvf(data_root, card):
+    """18a: pouring_mvf (device-bound) at depth 2, then 0, then 2 again:
+    ms/step of each epoch after a warm one."""
+    from video_rep_learning_tpu_torch.train import Trainer
+
+    torch.manual_seed(SEED)
+    trainer = Trainer(_ddp_cfg(MVF_CFG_FILE, data_root), no_eval=True, device="cuda")
+    steps = len(trainer.train_loader)
+    trainer.train_one_epoch(0)  # warm
+    _reset_launches()
+    times = {}
+    for epoch, depth in enumerate((2, 0, 2), 1):
+        trainer.cfg.DATA.DEVICE_PREFETCH = depth
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer.train_one_epoch(epoch)
+        torch.cuda.synchronize()
+        times.setdefault(depth, []).append((time.time() - t0) / steps * 1e3)
+    launches = _read_launches()
+    _check_vit_blocks("18a pouring_mvf", launches)
+    log(f"18a pouring_mvf ({steps} steps an epoch): depth 2 "
+        f"{', '.join(f'{t:.1f}' for t in times[2])} ms/step, depth 0 {times[0][0]:.1f} "
+        f"ms/step (in turns 2, 0, 2); copy stream {np.mean(trainer.prefetcher.h2d_ms()):.2f} "
+        f"ms a batch; launches {json.dumps(launches)} on {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def sweep_launches(cfg, model, lens, sweep, pack=1):
+    """#1's and #4's launches of a sweep over videos of these lengths:
+    #1 once an encoder layer a head run; #4 once a ViT block a trunk chunk
+    of MODEL.BASE_MODEL.FRAMES_PER_BATCH frames."""
+    from video_rep_learning_tpu_torch.evaluation.embedding import _chunks, flat_block
+
+    layers = cfg.MODEL.EMBEDDER_MODEL.NUM_LAYERS
+    vit = model.spec.vit_spec
+    chunk = model.spec.frames_per_batch
+    trunk = lambda n: (-(-n // chunk)) * (vit.depth if vit else 0)  # noqa: E731
+    fpb = cfg.EVAL.FRAMES_PER_BATCH
+    if sweep == "packed":
+        heads = vit_calls = 0
+        for w in range(0, len(lens), 2 * pack):
+            sizes = sorted((n for L in lens[w:w + 2 * pack] for _, n in _chunks(L, fpb)),
+                           reverse=True)
+            for g in range(0, len(sizes), pack):
+                grp = sizes[g:g + pack]
+                heads += 1
+                vit_calls += trunk(len(grp) * grp[0])
+        return {"flash_attn_fwd": layers * heads, "packed_attn": vit_calls}
+    heads = sum(len(_chunks(L, fpb)) for L in lens)
+    if sweep == "flat":
+        fb, total = flat_block(cfg, model), sum(lens)
+        blocks = [fb] * (total // fb) + ([total % fb] if total % fb else [])
+        return {"flash_attn_fwd": layers * heads,
+                "packed_attn": sum(trunk(b) for b in blocks)}
+    return {"flash_attn_fwd": layers * heads,
+            "packed_attn": sum(trunk(n) for L in lens for _, n in _chunks(L, fpb))}
+
+
+@contextmanager
+def sweep_mode(cfg, mode):
+    flat, pack = SWEEP_MODES[mode]
+    with env_vars(VRL_EVAL_FLAT=flat):
+        cfg.EVAL.PACK_VIDEOS = pack
+        try:
+            yield
+        finally:
+            cfg.EVAL.PACK_VIDEOS = 1
+
+
+def sweep_modes(what, cfg, model, items, lens, dtype, card, timed=True):
+    """Each mode of `SWEEP_MODES` over `items` (a loader, or a list): its
+    embeddings against the per-video sweep's within SWEEP_TOL[dtype], its
+    exact #1 / #4 launches, and (with `timed`) its frames/s, after one
+    untimed per-video pass. The launch counters keep counting across the
+    modes."""
+    from video_rep_learning_tpu_torch.evaluation.embedding import (eval_sweep,
+                                                                   get_embeddings_dataset)
+
+    frames = sum(lens)
+    ref = ref_names = None
+    out = {}
+    for mode in SWEEP_MODES:
+        with sweep_mode(cfg, mode):
+            sweep = eval_sweep(cfg, model)
+            if timed and ref is None:
+                get_embeddings_dataset(cfg, model, items, "cuda")  # warm-up
+            before = _read_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got = get_embeddings_dataset(cfg, model, items, "cuda")
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            launches = {k: v - before[k] for k, v in _read_launches().items()}
+            want = sweep_launches(cfg, model, lens, sweep, SWEEP_MODES[mode][1])
+        embs = np.concatenate(got["embs"])
+        if ref is None:
+            ref, ref_names = embs, got["names"]
+        got_launches = {k: launches[k] for k in want}
+        ok = (embs.shape == ref.shape and bool(np.isfinite(embs).all())
+              and got["names"] == ref_names and got_launches == want)
+        err = float(np.abs(embs - ref).max()) if embs.shape == ref.shape else float("inf")
+        ok &= err <= SWEEP_TOL[dtype]
+        out[mode] = {"sweep": sweep, "frames_per_s": frames / dt if timed else None,
+                     "max_abs_diff": err, "launches": got_launches}
+        log(f"18b {what} {mode:9s} ({sweep}): max |emb - per-video| {err:.3e} (tol "
+            f"{SWEEP_TOL[dtype]:.1e}), launches {json.dumps(got_launches)} (expected "
+            f"{json.dumps(want)})"
+            + (f", {frames / dt:.1f} frames/s ({frames} frames in {dt:.3f} s)"
+               if timed else "") + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"18b {what} {mode}: the sweep disagrees")
+    return out
+
+
+def fp32_items(data_root, lens=(70, 41, 55)):
+    """Three val videos cut to uneven lengths, as eval items."""
+    with open(os.path.join(data_root, "pouring", "val.pkl"), "rb") as f:
+        entries = pickle.load(f)
+    items = []
+    for entry, n in zip(entries, lens):
+        video = np.load(os.path.join(data_root, "pouring", entry["video_file"]))[:n]
+        items.append({"video": video, "seq_len": n, "name": entry["name"],
+                      "labels": np.asarray(entry["frame_label"])[:n],
+                      "chosen_steps": np.arange(n),
+                      "dims": np.array(video.shape[1:3], np.float32)})
+    return items, list(lens)
+
+
+def packed_group_attention(what, H, d, lens, tokens):
+    """#1 masked at a packed group's shape (one entry a chunk of `lens`,
+    `tokens` x max(lens) keys, the key mask from the chunks' true lengths
+    repeated over the tokens as the MV-Former head lays it out) against its
+    plain version, fp32 and bf16."""
+    from video_rep_learning_tpu_torch.ops.attention import (attention_reference,
+                                                            flash_attention_fwd)
+
+    g = torch.Generator().manual_seed(SEED)
+    L = max(lens)
+    mask = (torch.arange(L)[None] < torch.tensor(lens)[:, None]).float()
+    mask = mask.repeat(1, tokens).cuda()
+    shape = (len(lens), H, tokens * L, d)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(3))
+        out, lse = flash_attention_fwd(q, k, v, mask, d ** -0.5)
+        r_out, r_lse = attention_reference(q.float(), k.float(), v.float(), mask, d ** -0.5)
+        e_out = (out.float() - r_out).abs().max().item()
+        e_lse = (lse - r_lse).abs().max().item()
+        ok = (e_out <= TOL[(dtype, "out")] and e_lse <= TOL[(dtype, "lse")]
+              and bool(torch.isfinite(out.float()).all()))
+        log(f"18b #1 at {what}'s packed group {shape} {str(dtype)[6:]}, key mask of "
+            f"lengths {lens}: out err {e_out:.3e} (tol {TOL[(dtype, 'out')]:.1e}), lse "
+            f"err {e_lse:.3e} (tol {TOL[(dtype, 'lse')]:.1e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"#1 disagrees at {what}'s packed group")
+
+
+def fg99_flat_dump(card):
+    """18b: fg99_mvf's harness dump of the val split, per-video and with
+    EVAL.FLAT_EXTRACT on: the same pickles within SWEEP_TOL[bf16]."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.evaluation import finegym
+    from video_rep_learning_tpu_torch.models import build_model
+
+    data_root = os.path.join(WORK, "data")
+    if not os.path.isfile(os.path.join(data_root, "finegym", "gym99_val.pkl")):
+        make_gym99_set()
+    cfg = cli.load_config(cli.parse_cli(
+        ["--cfg_file", FG_CFG_FILE, "--opts", "DATA.NUM_WORKERS", "4"])[0])
+    cfg.PATH_TO_DATASET = os.path.join(data_root, cfg.PATH_TO_DATASET)
+    torch.manual_seed(SEED)
+    model = build_model(cfg, "cuda")
+    loader = cli.build_eval_loaders(cfg, "val")[0]
+    dumps, spans = {}, {}
+    _reset_launches()
+    for flat in (False, True, False):  # the first warms up
+        cfg.EVAL.FLAT_EXTRACT = flat
+        out = os.path.join(WORK, "fg99_flat" if flat else "fg99_per_video")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        files, _ = finegym.dump_embeddings_dataset(cfg, model, loader, out, "cuda")
+        torch.cuda.synchronize()
+        spans[flat] = time.time() - t0
+        dumps[flat] = files
+    cfg.EVAL.FLAT_EXTRACT = False
+    launches = _read_launches()
+    frames = err = 0
+    for a, b in zip(sorted(dumps[False]), sorted(dumps[True])):
+        recs = []
+        for path in (a, b):
+            with open(path, "rb") as f:
+                recs.append(pickle.load(f))
+        frames += len(recs[0]["labels"])
+        err = max(err, float(np.abs(recs[0]["embs"] - recs[1]["embs"]).max()))
+        if not np.array_equal(recs[0]["labels"], recs[1]["labels"]):
+            raise AssertionError("18b fg99: the dumps' labels differ")
+    ok = (len(dumps[True]) == FG_SPLITS["val"] and err <= SWEEP_TOL[torch.bfloat16])
+    log(f"18b fg99_mvf harness dump of the val split ({len(dumps[True])} pickles): "
+        f"EVAL.FLAT_EXTRACT on {frames / spans[True]:.1f} labelled frames/s, off "
+        f"{frames / spans[False]:.1f}; max |emb flat - per-video| {err:.3e} (tol "
+        f"{SWEEP_TOL[torch.bfloat16]:.1e}); launches {json.dumps(launches)} on {card} "
+        f"{'ok' if ok else 'FAIL'}")
+    _check_vit_blocks("18b fg99 dumps", launches)
+    if not ok:
+        raise AssertionError("18b fg99: the flat dump disagrees")
+    return launches, {"flat_fps": frames / spans[True], "per_video_fps": frames / spans[False],
+                      "max_abs_diff": err}
+
+
+def phase_sweeps(data_root, card):
+    """18b: the CARL and pouring_mvf val sweeps in each mode under USE_AMP,
+    then in fp32 on three cut videos (EVAL.FRAMES_PER_BATCH 32, trunk blocks
+    of 48: chunks and blocks that split videos); #1 at a packed group's
+    shape; fg99's flat dump. Returns (launches, numbers)."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch.models import build_model
+
+    launches, nums = {}, {}
+    with open(os.path.join(data_root, "pouring", "val.pkl"), "rb") as f:
+        val_lens = [int(e["seq_len"]) for e in pickle.load(f)]
+    for what, cfg_file in (("CARL", CFG_FILE), ("pouring_mvf", MVF_CFG_FILE)):
+        cfg = _ddp_cfg(cfg_file, data_root)
+        torch.manual_seed(SEED)
+        model = build_model(cfg, "cuda")
+        loader = cli.build_eval_loaders(cfg, "val")[0]
+        _reset_launches()
+        nums[what] = sweep_modes(what, cfg, model, loader, val_lens, torch.bfloat16, card)
+        launches[f"{what} sweeps"] = _read_launches()
+        # the first packed group of P 4: the window's four longest chunks
+        e = cfg.MODEL.EMBEDDER_MODEL
+        packed_group_attention(what, e.NUM_HEADS, e.HIDDEN_SIZE // e.NUM_HEADS,
+                               sorted(val_lens[:8], reverse=True)[:4],
+                               e.SMART_TOKENS if model.spec.vit_spec else 1)
+        del model
+        torch.cuda.empty_cache()
+
+        cfg = _ddp_cfg(cfg_file, data_root, ["USE_AMP", "False", "EVAL.FRAMES_PER_BATCH",
+                                             "32", "EVAL.FLAT_BLOCK", "48"])
+        torch.manual_seed(SEED)
+        model = build_model(cfg, "cuda")
+        items, lens = fp32_items(data_root)
+        nums[what + " fp32"] = sweep_modes(what + " fp32", cfg, model, items, lens,
+                                           torch.float32, card, timed=False)
+        del model
+        torch.cuda.empty_cache()
+    launches["fg99 dumps"], nums["fg99"] = fg99_flat_dump(card)
+    return launches, nums
+
+
+def phase_bench_eval(card):
+    """18c: `python -m video_rep_learning_tpu_torch.tools.bench_eval`'s run
+    on its ragged set, one timed pass a mode; each mode within
+    SWEEP_TOL[bf16] of the per-video sweep."""
+    from video_rep_learning_tpu_torch.tools import bench_eval
+
+    _reset_launches()
+    rows = bench_eval.run("cuda", epochs=1)
+    launches = _read_launches()
+    bench_eval.show(rows)
+    bad = [r for r in rows if r["max_abs_diff_vs_per_video"] > SWEEP_TOL[torch.bfloat16]]
+    if bad:
+        raise AssertionError(f"18c bench_eval: modes off the per-video sweep: {bad}")
+    log(f"18c bench_eval on {card}: " + json.dumps(
+        {f"{r['family']} {r['mode']}": round(r["frames_per_s"], 1) for r in rows}))
+    return launches, rows
+
+
+def phase_prefetch_and_sweeps(data_root, card):
+    """18: the prefetch (a), the sweeps (b) and the ragged tool (c). Returns
+    (each path's launches, numbers)."""
+    t0 = time.time()
+    launches, nums = {}, {}
+    for name in PREFETCH_CFGS:
+        launches[f"prefetch {name}"], nums[name] = prefetch_pair(name, data_root, card)
+        log(f"18a {name}: {time.time() - t0:.1f} s into phase 18")
+    launches["prefetch pouring_mvf"], nums["pouring_mvf_step"] = prefetch_mvf(data_root, card)
+    log(f"18a: {time.time() - t0:.1f} s into phase 18")
+    sweep_launches_, nums["sweeps"] = phase_sweeps(data_root, card)
+    launches.update(sweep_launches_)
+    log(f"18b: {time.time() - t0:.1f} s into phase 18")
+    launches["bench_eval"], nums["bench_eval"] = phase_bench_eval(card)
+    log(f"phase 18 in {time.time() - t0:.1f} s")
+    return launches, nums
+
 JAX_OPS = "video_rep_learning_tpu/ops/"
 SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
     "flash_attn_fwd": ("csrc/flash_attn_fwd.cu", JAX_OPS + "attention_pallas.py:79"),
@@ -3563,6 +4024,15 @@ def main():
                              f"{strays}")
     log("phase 17 paths: none of " + ", ".join(TOOL_ENTRIES) + " launched")
     log("phase 17 numbers: " + json.dumps({"world1": world1_nums, "two_ranks": ddp_nums}))
+    torch.cuda.empty_cache()
+    p18_launches, p18_nums = phase_prefetch_and_sweeps(data_root, card)
+    strays = {(path, k): n for path, counts in p18_launches.items()
+              for k, n in counts.items() if k in TOOL_ENTRIES and n}
+    if strays:
+        raise AssertionError(f"a phase 18 path launched a micro-benchmark kernel: "
+                             f"{strays}")
+    log("phase 18 paths: none of " + ", ".join(TOOL_ENTRIES) + " launched")
+    log("phase 18 numbers: " + json.dumps(p18_nums))
     # the kernels as built (PTXAS_KERNELS): registers, stack, spills; 13g's SASS
     for name, built in ptxas.items():
         entries[name]["ptxas"] = built
@@ -3599,6 +4069,7 @@ def main():
             "supervised_launches": {p: c[name] for p, c in sup_launches.items()},
             "phase16_launches": {p: c[name] for p, c in new_launches.items()},
             "phase17_launches": {p: c[name] for p, c in ddp_paths.items()},
+            "phase18_launches": {p: c[name] for p, c in p18_launches.items()},
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],

@@ -5,7 +5,10 @@ the ROADMAP queue 1 item that brings them, is empty). The ten
 configurations of the TCC / TCN / classification slice and the conv SCL
 ones, and the three late-fusion ViT ablations (`ablate_dinoB8_*`, on a
 test-only 2-block ViT), train one step on the CPU, shrunk to test size (32
-px, 4 frames a clip, narrow heads) on a batch as the loader lays it out."""
+px, 4 frames a clip, narrow heads) on a batch as the loader lays it out.
+EVAL.FLAT_EXTRACT and EVAL.PACK_VIDEOS pick the eval sweep of a shipped
+config as the JAX package's dispatch does (no longer ignored or raising);
+the sweeps themselves are held in `tests/test_torch_eval_sweeps.py`."""
 
 import glob
 import os
@@ -15,7 +18,8 @@ import pytest
 import torch
 
 from video_rep_learning_tpu_torch.algos import get_algo
-from video_rep_learning_tpu_torch.config import get_cfg, load_yaml_into
+from video_rep_learning_tpu_torch.config import apply_opts, get_cfg, load_yaml_into
+from video_rep_learning_tpu_torch.evaluation.embedding import eval_sweep
 from video_rep_learning_tpu_torch.models import CARLModel, resolve_model_spec
 from video_rep_learning_tpu_torch.models import vit
 from video_rep_learning_tpu_torch.train import Trainer
@@ -142,3 +146,32 @@ def test_tensor_parallelism_names_its_item(sequence):
     match = "Ulysses" if sequence else "queue 1 item 6b"
     with pytest.raises(NotImplementedError, match=match):
         Trainer(cfg, build_loaders=False, device="cpu")
+
+
+# (config, options, the sweep): the transformer configs take the flat sweep
+# under FLAT_EXTRACT and the packed one under PACK_VIDEOS > 1 (FLAT_EXTRACT
+# first, as in JAX); the conv configs (NUM_CONTEXTS 2) stay per-video
+SWEEP_CASES = [
+    ("configs/scl_transformer_config.yml", (), "per_video"),
+    ("configs/scl_transformer_config.yml", ("EVAL.FLAT_EXTRACT", "True"), "flat"),
+    ("configs/scl_transformer_config.yml", ("EVAL.PACK_VIDEOS", "2"), "packed"),
+    ("configs/scl_transformer_config.yml",
+     ("EVAL.FLAT_EXTRACT", "True", "EVAL.PACK_VIDEOS", "4"), "flat"),
+    ("configs_mvf/pouring_mvf.yml", ("EVAL.FLAT_EXTRACT", "True"), "flat"),
+    ("configs_mvf/pouring_mvf.yml", ("EVAL.PACK_VIDEOS", "4"), "packed"),
+    ("configs_mvf/fg99_mvf.yml", ("EVAL.FLAT_EXTRACT", "True", "EVAL.FLAT_BLOCK", "64"),
+     "flat"),
+    ("configs/tcc_config.yml", ("EVAL.FLAT_EXTRACT", "True"), "per_video"),
+    ("configs/tcc_config.yml", ("EVAL.PACK_VIDEOS", "2"), "per_video"),
+]
+
+
+@pytest.mark.parametrize("path, opts, sweep", SWEEP_CASES)
+def test_eval_sweep_options_are_read(path, opts, sweep, monkeypatch):
+    monkeypatch.delenv("VRL_EVAL_FLAT", raising=False)
+    cfg = _load(path)
+    assert not cfg.EVAL.FLAT_EXTRACT and int(cfg.EVAL.PACK_VIDEOS) == 1
+    apply_opts(cfg, list(opts))
+    with torch.device("meta"):
+        model = CARLModel(resolve_model_spec(cfg))
+    assert eval_sweep(cfg, model) == sweep

@@ -9,7 +9,10 @@ forward, the plain backward chunked over frames) against autograd of the
 plain versions; the JAX package's MLP gates reaching their kernels; and the
 wrappers' refusal of what their kernels do not take, and of a launch that
 would drop a gradient; #1 at the FineGym eval chunk's (1, 8, 12000, 32),
-a small late-fusion ViT's embeddings and the FineGym probe, card vs CPU.
+a small late-fusion ViT's embeddings and the FineGym probe, card vs CPU;
+the trainer's device prefetch (pinned buffers, the copy stream, the compute
+stream's wait) delivering each batch exactly while the compute stream is
+still busy with the one before.
 These need a CUDA card and skip elsewhere; on the GPU machine run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1113,3 +1116,33 @@ def test_finegym_probe_matches_cpu(cuda, tmp_path):
     assert got["cuda"][0] == got["cpu"][0]
     for a, b in zip(got["cuda"][1:], got["cpu"][1:]):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def test_prefetch_delivers_each_batch_exactly(cuda):
+    """DATA.DEVICE_PREFETCH 2 on the card: batches of two sizes (the pinned
+    buffers grow once), each read on the compute stream behind a sleep that
+    keeps it busy while the worker copies the next ones; every batch arrives
+    whole, on the trainer's card, copied on the prefetcher's own stream."""
+    import numpy as np
+
+    from video_rep_learning_tpu_torch.train.prefetch import DevicePrefetcher
+    from video_rep_learning_tpu_torch.train.trainer import BATCH_KEYS
+
+    rng = np.random.RandomState(0)
+    batches = [{"videos": rng.randint(0, 256, (1, 2, 8 + 8 * (i >= 3), 64, 64, 3),
+                                      dtype=np.uint8),
+                "video_masks": rng.rand(1, 2, 8 + 8 * (i >= 3)).astype(np.float32),
+                "dims": np.array([[64.0, 64.0]], np.float32)} for i in range(6)]
+    pre = DevicePrefetcher(cuda, 2, BATCH_KEYS, None)
+    assert pre.copy_stream != torch.cuda.current_stream()
+    sums = []
+    for it, host, dev, h2d_s in pre.stream(batches):
+        torch.cuda._sleep(20_000_000)  # ~10 ms of a busy compute stream
+        assert dev["videos"].device == torch.device("cuda", torch.cuda.current_device())
+        sums.append((int(dev["videos"].long().sum()), dev["video_masks"].double().sum()))
+        assert "videos" not in host and h2d_s > 0
+    for (vs, ms), b in zip(sums, batches):
+        assert vs == int(b["videos"].astype(np.int64).sum())
+        assert float(ms) == pytest.approx(float(b["video_masks"].astype(np.float64).sum()))
+    assert len(pre.h2d_ms()) == 6 and all(t > 0 for t in pre.h2d_ms())
+    assert sorted(pre._pinned) == ["video_masks", "videos"]

@@ -29,7 +29,6 @@ from video_rep_learning_tpu.evaluation.event_completion import \
     EventCompletion as JaxEventCompletion
 from video_rep_learning_tpu_torch.config import get_cfg
 from video_rep_learning_tpu_torch.evaluation.classification import Classification
-from video_rep_learning_tpu_torch.evaluation.embedding import iter_video_embeddings
 from video_rep_learning_tpu_torch.evaluation.event_completion import EventCompletion
 from video_rep_learning_tpu_torch.evaluation.linear_models import (
     LeastSquares, LogisticRegression)
@@ -131,10 +130,3 @@ def test_mid_epoch_checkpoints_raise():
     cfg.PARALLEL.TENSOR_PARALLELISM = 2
     with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
         Trainer(cfg, build_loaders=False, device="cpu")
-
-
-def test_packed_eval_sweep_raises():
-    cfg = get_cfg()
-    cfg.EVAL.PACK_VIDEOS = 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        next(iter_video_embeddings(cfg, None, [], "cpu"))

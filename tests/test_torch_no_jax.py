@@ -4,10 +4,10 @@ blocks all four, import the port (its micro-benchmark tools too) and run a
 tiny CPU evaluation, from the `.npy` loaders through the model to the
 default four tasks (their linear probes are the port's numpy + scipy
 ones), then two
-training steps, a TCC epoch of `configs/tcc_config.yml`'s conv model (the
+training steps and one through the device prefetch, a TCC epoch of `configs/tcc_config.yml`'s conv model (the
 supervised augmentation, train_all) and its NUM_CONTEXTS 2 evaluation,
 then an MV-Former evaluation (`configs_mvf/pouring_mvf.yml`
-with a small test ViT), one MV-Former training step, and one step of the
+with a small test ViT) and its frame-packed sweep, one MV-Former training step, and one step of the
 same model frozen up to block 1 of 2 under MODEL.REMAT (the back end
 trains, the front stays), the late-fusion ViT ablations' evaluation
 (`configs_mvf/ablate_dinoB8_{max,cls}.yml` on the small ViT), and the
@@ -40,8 +40,8 @@ SCRIPT = textwrap.dedent("""
     from video_rep_learning_tpu_torch.models import build_model
     from video_rep_learning_tpu_torch.train import Trainer
     from video_rep_learning_tpu_torch.tools import (  # noqa: F401
-        bench_attn_variants, bench_int8_pallas, bench_ln_matmul,
-        bench_packed_attn, bench_vpu_bf16)
+        bench_attn_variants, bench_eval, bench_host_pipeline, bench_int8_pallas,
+        bench_ln_matmul, bench_packed_attn, bench_vpu_bf16)
 
     torch.set_num_threads(1)
     cfg = get_cfg()
@@ -76,6 +76,15 @@ SCRIPT = textwrap.dedent("""
     moved = [not torch.equal(a, p) for a, (n, p) in
              zip(before, trainer.model.named_parameters())]
     assert any(moved)
+    # one step through the device prefetch (DATA.DEVICE_PREFETCH 2, the
+    # default): the worker thread's copy, then the step
+    from contextlib import closing
+    assert trainer.cfg.DATA.DEVICE_PREFETCH == 2
+    with closing(trainer.batch_stream()) as batches:
+        it, host, dev, h2d_s = next(batches)
+        prefetch_loss = float(trainer.train_step(host, dev, 0, it, 1e-3))
+    assert np.isfinite(prefetch_loss) and "videos" not in host, prefetch_loss
+    assert trainer.prefetcher is not None
 
     from video_rep_learning_tpu_torch.config import load_yaml_into
     from video_rep_learning_tpu_torch.models import vit
@@ -118,6 +127,15 @@ SCRIPT = textwrap.dedent("""
                                 build_eval_loaders(mvf, "val"), iterator_tasks,
                                 tasks, 0, None, "cpu")
     assert all(np.isfinite(v["pouring"]) for v in mvf_metrics.values()), mvf_metrics
+    # the frame-packed sweep (EVAL.FLAT_EXTRACT) over the val videos
+    from video_rep_learning_tpu_torch.evaluation.embedding import (
+        eval_sweep, get_embeddings_dataset)
+    mvf.EVAL.FLAT_EXTRACT = True
+    assert eval_sweep(mvf, model) == "flat"
+    flat = get_embeddings_dataset(mvf, model, build_eval_loaders(mvf, "val")[0], "cpu")
+    assert sum(e.shape[0] for e in flat["embs"]) > 0
+    assert all(np.isfinite(e).all() for e in flat["embs"])
+    mvf.EVAL.FLAT_EXTRACT = False
 
     mvf.TRAIN.NUM_FRAMES = 4
     mvf_trainer = Trainer(mvf, no_eval=True, device="cpu")

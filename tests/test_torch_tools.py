@@ -33,7 +33,9 @@ The seven `pallas_call` sites:
 
 And the wrappers of the two tensor-core kernels of row 13,
 `packed_attention_variant` and `tc_matmul`, refusing what their kernels
-do not take before any build or launch.
+do not take before any build or launch. Then the two tools that measure
+the eval sweeps and the host's input pipeline, `bench_eval` and
+`bench_host_pipeline`, through their command lines on the CPU.
 """
 
 import importlib.util
@@ -286,3 +288,33 @@ def test_row13_kernels_refuse_before_any_launch(monkeypatch, case):
         call()
     assert before == (attention.packed_attention_variant.launches,
                       int8_matmul.tc_matmul.launches)
+
+
+def test_bench_eval_on_cpu(capsys):
+    """Every mode on a small ragged set (CARL at 32 px): the sweep each mode
+    names, one finite embedding a frame, and the embeddings of the flat and
+    packed sweeps within the sweeps' tolerance of the per-video ones
+    (`tests/test_torch_eval_sweeps.py`: 2e-6)."""
+    from video_rep_learning_tpu_torch.tools import bench_eval
+
+    rows = bench_eval.main(["--device", "cpu", "--lengths", "5,9,7"])
+    assert [(r["mode"], r["sweep"]) for r in rows] == [
+        ("per_video", "per_video"), ("flat", "flat"), ("packed2", "packed"),
+        ("packed4", "packed")]
+    for r in rows:
+        assert r["useful_frames"] == 21 and r["frames_per_s"] > 0
+        assert r["max_abs_diff_vs_per_video"] <= 2e-6
+    out = capsys.readouterr().out
+    assert out.count("carl: ragged") == 4 and '"rows"' in out
+
+
+def test_bench_host_pipeline_on_cpu(tmp_path, capsys):
+    from video_rep_learning_tpu_torch.tools import bench_host_pipeline
+
+    rows = bench_host_pipeline.main(["--data", str(tmp_path / "pouring"), "--epochs", "1",
+                                     "--frames", "8", "--workers", "0", "2",
+                                     "--size", "32"])
+    assert [(r["workers"], r["epoch"]) for r in rows] == [(0, 0), (2, 0)]
+    for r in rows:  # two views of 8 frames a clip
+        assert r["clips_per_s"] > 0 and r["frames_per_s"] == pytest.approx(16 * r["clips_per_s"])
+    assert "workers=2 epoch 0" in capsys.readouterr().out

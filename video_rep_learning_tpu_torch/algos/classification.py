@@ -5,6 +5,12 @@ Counterpart of `video_rep_learning_tpu/algos/classification.py`
 over the frames with a label >= 0, weighted by the video mask; otherwise the
 "loss" is the masked accuracy. The mode is the model's (`model.training`),
 as `train=` is in the JAX package.
+
+Across processes the JAX package takes one masked mean over the global
+batch (its step runs under plain `jit` over the sharded batch). Each rank
+here divides its own masked sum by the ranks' summed count, times the world
+size: DDP's average of the gradients is then the global mean's gradient, and
+the ranks' mean of the returned values is the global mean.
 """
 
 from __future__ import annotations
@@ -12,10 +18,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import all_reduce_tensor, world
+
 
 def classification_loss(logits, labels, masks, training: bool):
     """logits (B, T, K), labels (B, T) int (-1 = ignore), masks (B, T) ->
-    {"loss": 0-d fp32}."""
+    {"loss": 0-d fp32}; with several ranks this rank's share of the global
+    masked mean (see the module's docstring)."""
     K = logits.shape[-1]
     logits = logits.reshape(-1, K).float()
     labels = labels.reshape(-1).long()
@@ -27,7 +36,10 @@ def classification_loss(logits, labels, masks, training: bool):
     else:
         per = (logits.argmax(dim=1) == safe).float()
     w = masks * valid
-    return {"loss": (per * w).sum() / w.sum()}
+    size, _ = world()
+    if size == 1:
+        return {"loss": (per * w).sum() / w.sum()}
+    return {"loss": size * (per * w).sum() / all_reduce_tensor(w.sum())}
 
 
 class Classification:

@@ -8,7 +8,8 @@ and `DistributedDataParallel` averages the gradients. What the JAX package
 gets from one global batch on a mesh, the port gets from collectives:
 BatchNorm statistics over the global batch (`models/layers.py`,
 `convert_sync_batchnorm`), the SCL and TCC losses per rank averaged by
-DDP (their global branches gather the embeddings), and the FineGym
+DDP (their global branches gather the embeddings), classification's masked
+mean over the global batch's count (`algos/classification.py`), and the FineGym
 harness's gathered file lists and summed counters (`collectives.py`).
 
 The JAX package's `parallel/sharding.py::dp_kernel_call` has no
@@ -19,6 +20,6 @@ shard. Its tensor and sequence parallelism (PARALLEL.TENSOR_PARALLELISM
 """
 
 from .collectives import (all_gather_object, all_gather_with_grad,  # noqa: F401
-                          all_reduce_sum, synchronize)
+                          all_reduce_sum, all_reduce_tensor, synchronize)
 from .mesh import (check_parallel_config, init_distributed, is_root_proc,  # noqa: F401
                    process_group, world)

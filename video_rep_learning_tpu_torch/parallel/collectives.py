@@ -4,7 +4,8 @@ Counterpart of `video_rep_learning_tpu/parallel/collectives.py` (the
 reference's `utils/distributed.py:136-265`): a ragged gather of pickled
 objects, a host scalar summed in fp64, a barrier; each is the identity
 with one process. `all_gather_with_grad` gathers a tensor and carries the
-gradient back, for the losses' global branches.
+gradient back, for the losses' global branches; `all_reduce_tensor` sums a
+tensor over the ranks outside autograd (classification's global count).
 """
 
 from __future__ import annotations
@@ -42,6 +43,16 @@ def all_reduce_sum(value: float) -> float:
     t = torch.tensor([value], dtype=torch.float64, device=_collective_device())
     dist.all_reduce(t)
     return float(t.item())
+
+
+def all_reduce_tensor(x: torch.Tensor) -> torch.Tensor:
+    """A tensor summed over the ranks, detached, on `x`'s device (reduced
+    on the backend's device: the rank's card for NCCL, the CPU for gloo)."""
+    if world()[0] == 1:
+        return x.detach()
+    t = x.detach().to(_collective_device(), copy=True)
+    dist.all_reduce(t)
+    return t.to(x.device)
 
 
 def synchronize() -> None:

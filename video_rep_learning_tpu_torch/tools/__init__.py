@@ -13,6 +13,10 @@ function, that call, with CUDA events. On the CPU the wrappers take their
 plain versions and nothing is timed.
 
 `ddp_cards` is no micro-benchmark: it times a config's warm training steps
-at each world size, one process a card over NCCL (gloo on the CPU), and
-checks that the ranks stay bit-identical.
+(or epochs of the training loop) at each world size, one process a card
+over NCCL (gloo on the CPU), and checks that the ranks stay bit-identical.
+`bench_eval` times the eval sweeps (per-video, frame-packed, packed) on a
+ragged set staged on the card, and `bench_host_pipeline` the train loader
+alone on the host: the counterparts of `tools/bench_eval.py` and
+`tools/bench_host_pipeline.py`.
 """

@@ -37,6 +37,12 @@ data wait, 1 = H2D, 2 = step dispatch, 5 = logging).
   n steps. A run resumed from one consumes the loader up to its iteration
   without stepping; the per-step seeds, the epoch-seeded loader and the
   epoch-pure LR then make it equal to an uninterrupted run bit for bit.
+- DATA.DEVICE_PREFETCH d > 0 (default 2) copies the next d batches to the
+  device on a worker thread (`train/prefetch.py`: pinned buffers and a copy
+  stream on a card) while the loop steps; marker 0 is then the whole wait
+  for a batch and marker 1 the copy's own time, off the critical path, as
+  in the JAX package (`trainer.py:405-411`). d = 0 is the serial loop with
+  the reference's markers. The val epoch copies serially, as in JAX.
 - The val epoch logs its last batch's augmented views as video panels
   (`_log_val_video_panels`), in a single process only.
 - Across processes (`parallel/`, a process group joined before the trainer
@@ -55,6 +61,7 @@ data wait, 1 = H2D, 2 = step dispatch, 5 = logging).
 from __future__ import annotations
 
 import time
+from contextlib import closing
 from typing import Dict
 
 import numpy as np
@@ -75,6 +82,7 @@ from ..parallel import (all_reduce_sum, check_parallel_config, synchronize,
                         world)
 from .checkpoint import resume, save_checkpoint, save_mid_checkpoint
 from .optimizer import Optimizer, learning_rate_for_epoch
+from .prefetch import DevicePrefetcher
 
 logger = get_logger(__name__)
 
@@ -138,6 +146,7 @@ class Trainer:
         self.start_epoch = 0
         self.start_iter = 0  # > 0 after a resume from a mid-epoch checkpoint
         self.last_markers: Dict[int, float] = {}
+        self.prefetcher = None  # built at the first epoch with DEVICE_PREFETCH > 0
 
     def _warm_start(self, path: str):
         """Weights-only warm start from a reference-layout `.pth`
@@ -221,6 +230,20 @@ class Trainer:
 
     # -- epochs -----------------------------------------------------------
 
+    def batch_stream(self, skip_until: int = 0):
+        """The train loader's batches as (iteration, host batch, device
+        batch, H2D seconds): with DATA.DEVICE_PREFETCH > 0 copied ahead on
+        the prefetch thread (the host batch then lacks "videos"), else
+        (iteration, batch, None, 0.0) for the loop to copy itself. Batches
+        before `skip_until` come uncopied."""
+        depth = int(self.cfg.DATA.DEVICE_PREFETCH or 0)
+        if depth <= 0:
+            return ((it, batch, None, 0.0) for it, batch in enumerate(self.train_loader))
+        if self.prefetcher is None or self.prefetcher.depth != depth:
+            self.prefetcher = DevicePrefetcher(self.device, depth, BATCH_KEYS,
+                                               self.device_batch)
+        return self.prefetcher.stream(self.train_loader, skip_until)
+
     def train_one_epoch(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg
         warmup_active = self.backbone_warmup_active(epoch)
@@ -236,29 +259,34 @@ class Trainer:
         tmt = {i: 0.0 for i in range(10)}
         tmc = 0
         t1 = time.time()
-        for cur_iter, batch in enumerate(self.train_loader):
-            if cur_iter < skip_until:
+        with closing(self.batch_stream(skip_until)) as batches:
+            for cur_iter, batch, dev_batch, h2d_s in batches:
+                if cur_iter < skip_until:
+                    t1 = time.time()
+                    continue
+                tmc += 1
+                tmt[0] += time.time() - t1
                 t1 = time.time()
-                continue
-            tmc += 1
-            tmt[0] += time.time() - t1
-            t1 = time.time()
-            dev_batch = self.device_batch(batch)
-            tmt[1] += time.time() - t1
-            t1 = time.time()
-            losses.append(self.train_step(batch, dev_batch, epoch, cur_iter, lr,
-                                          warmup_active))
-            tmt[2] += time.time() - t1
-            t1 = time.time()
-            if cur_iter % cfg.LOGGING.REPORT_INTERVAL == 0:
-                # reading the value waits for this step
-                logger.info("iter %d, training loss: %.3f", data_size * epoch + cur_iter,
-                            self._rank_mean(float(losses[-1])))
-            if save_n > 0 and (cur_iter + 1) % save_n == 0:
-                save_mid_checkpoint(cfg.LOGDIR, self.model, self.optimizer, epoch,
-                                    cur_iter + 1, cfg)
-            tmt[5] += time.time() - t1
-            t1 = time.time()
+                if dev_batch is None:  # the serial copy
+                    dev_batch = self.device_batch(batch)
+                    tmt[1] += time.time() - t1
+                    t1 = time.time()
+                else:  # copied on the prefetch thread, off the critical path
+                    tmt[1] += h2d_s
+                losses.append(self.train_step(batch, dev_batch, epoch, cur_iter, lr,
+                                              warmup_active))
+                tmt[2] += time.time() - t1
+                t1 = time.time()
+                if cur_iter % cfg.LOGGING.REPORT_INTERVAL == 0:
+                    # reading the value waits for this step
+                    logger.info("iter %d, training loss: %.3f",
+                                data_size * epoch + cur_iter,
+                                self._rank_mean(float(losses[-1])))
+                if save_n > 0 and (cur_iter + 1) % save_n == 0:
+                    save_mid_checkpoint(cfg.LOGDIR, self.model, self.optimizer, epoch,
+                                        cur_iter + 1, cfg)
+                tmt[5] += time.time() - t1
+                t1 = time.time()
 
         total = float(torch.stack(losses).sum().cpu()) / data_size if losses else 0.0
         total = self._rank_mean(total)
