@@ -5,8 +5,10 @@ drives the CARL embedding and training paths, the MV-Former embedding and
 training paths, the supervised paths, late fusion over a ViT, the FineGym
 harness, a mid-epoch resume, data parallelism (a world of 1 over NCCL,
 two ranks sharing the card over gloo), the trainer's device prefetch and
-the frame-packed and packed eval sweeps end to end at full model width,
-and compares the card with the CPU on each.
+the frame-packed and packed eval sweeps, and the tools that drive and
+inspect the port (the bench, the step profilers, the FRAMES_PER_BATCH
+sweep, the visualizers) end to end at full model width, and compares the
+card with the CPU on each.
 
     python3 chip_smoke.py
 
@@ -173,6 +175,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    group's shape against its plain version; fg99_mvf's harness dump with
    EVAL.FLAT_EXTRACT on against off; (c) `tools/bench_eval.py`'s ragged run
    (65-310 frames, FRAMES_PER_BATCH 2000) in each mode for both families.
+19. the tools: first whether `native/` encodes and decodes an mp4 here and
+   whether matplotlib imports (one line); (a) `bench._measure` on
+   `carl_cfg`, `mvf_cfg` and `k400_cfg` (2 warm + 4 timed steps each, exact
+   #1 / #3 / #12 and ViT launches a step, clips/s, peak memory); (b)
+   `bench._measure_loader_fed` of CARL with the decode cache off and at
+   2048 MB, one untimed and one timed epoch over the bench's set (8 videos
+   of 260-330 frames at 256 px, mp4, or `.npy` where mp4 fails), markers
+   and exact launches; (c) `tools/profile_step.py` on carl and mvf (2
+   steps) and `tools/profile_carl_budget.py --iters 2` (every rung's device
+   and host time); (d) `tools/sweep_frames_per_batch.py 120 240`, one rep;
+   (e) `visualize_lstp`'s hook capture on 16 frames of a val video with the
+   seeded pouring_mvf weights in fp32, card vs CPU within LSTP_TOL, exact
+   ViT launches, rendered where matplotlib is; (f) `visualize_alignment`
+   (DTW) and `visualize_retrieval` on the card over phase 5's checkpoint
+   (their compute half alone where matplotlib is absent).
 Phase 3 also holds #7 (matmul + GELU) and #9 (the LN-MLP half-block)
 against their plain versions, times #9 at 480 frames too, and checks the
 six ViT kernels' gradients (the kernel forward, the plain backward chunked
@@ -1422,31 +1439,29 @@ def phase_train_path(data_root, card):
 
 
 def profile_train_step(trainer, batch, what, trace, own=None):
-    """One warm step under torch.profiler: wall, device busy share, time by
-    kernel (and by the `own` kernel-name fragments); the trace goes to
-    WORK/`trace`."""
-    from torch.profiler import ProfilerActivity, profile
+    """One warm step under torch.profiler through `tools/profile_step.py`'s
+    `profile`: wall, device busy share, time by kernel (and by the `own`
+    kernel-name fragments); the trace goes to WORK/`trace`."""
+    from video_rep_learning_tpu_torch.tools import profile_step
 
     dev = trainer.device_batch(batch)
     trainer.train_step(batch, dev, 9, 50, 1e-4)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        dev = trainer.device_batch(batch)
-        trainer.train_step(batch, dev, 9, 51, 1e-4)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    # kernels and copies on the card (the CPU ops that launched them carry
-    # the same time again)
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    log(f"profile ({what}, one warm step): wall {wall * 1e3:.1f} ms, device busy "
-        f"{busy * 1e3:.1f} ms = {busy / wall * 100:.1f}% (idle "
-        f"{100 - busy / wall * 100:.1f}%)")
+    prof = profile_step.profile(
+        lambda i: trainer.train_step(batch, trainer.device_batch(batch), 9, 51 + i, 1e-4),
+        1, "cuda", os.path.join(WORK, trace))
+    log(f"profile ({what}, one warm step): " + profile_step.busy_line(prof, 1))
+    log_by_kind(prof, own, 15)
+
+
+def log_by_kind(prof, own, top):
+    """A profile's device time by the `own` kernel-name fragments (and
+    everything else), then its `top` device operations."""
+    from video_rep_learning_tpu_torch.tools import profile_step
+
     if own:
+        busy = prof["busy_s"]
         by = {label: 0.0 for label in own.values()}
-        for e in events:
+        for e in prof["events"]:
             for frag, label in own.items():
                 if frag in e.key:
                     by[label] += e.self_device_time_total / 1e6
@@ -1454,9 +1469,8 @@ def profile_train_step(trainer, batch, what, trace, own=None):
         log("  device time by kind: " + ", ".join(
             f"{label} {t * 1e3:.1f} ms ({t * share:.1f}%)" for label, t in by.items())
             + f", everything else {rest * 1e3:.1f} ms ({rest * share:.1f}%)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    prof.export_chrome_trace(os.path.join(WORK, trace))
+    for line in profile_step.table(prof, 1, top=top):
+        log("  " + line)
 
 
 def phase_profile(trainer, batch):
@@ -1819,35 +1833,16 @@ def phase_mvf_profile(cfg, model, item):
     """One warm video of the MV-Former sweep under torch.profiler: wall,
     device busy share, and device time by kernel, the port's own kernels
     against everything else (fc2 is the largest other product)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from video_rep_learning_tpu_torch.evaluation.embedding import \
         get_embeddings_dataset
+    from video_rep_learning_tpu_torch.tools import profile_step
 
     get_embeddings_dataset(cfg, model, [item], "cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        get_embeddings_dataset(cfg, model, [item], "cuda")
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    log(f"MV-Former profile (one warm {item['seq_len']}-frame video): wall "
-        f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms = "
-        f"{busy / wall * 100:.1f}% (idle {100 - busy / wall * 100:.1f}%)")
-    own = {label: 0.0 for label in OWN_KERNELS.values()}
-    for e in events:
-        for frag, label in OWN_KERNELS.items():
-            if frag in e.key:
-                own[label] += e.self_device_time_total / 1e6
-    rest = busy - sum(own.values())
-    log("  device time by kind: " + ", ".join(
-        f"{label} {t * 1e3:.1f} ms ({t / busy * 100:.1f}%)" for label, t in own.items())
-        + f", everything else {rest * 1e3:.1f} ms ({rest / busy * 100:.1f}%)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    prof = profile_step.profile(
+        lambda i: get_embeddings_dataset(cfg, model, [item], "cuda"), 1, "cuda")
+    log(f"MV-Former profile (one warm {item['seq_len']}-frame video): "
+        + profile_step.busy_line(prof, 1))
+    log_by_kind(prof, OWN_KERNELS, 12)
 
 
 def _peak_mib(fn):
@@ -3506,21 +3501,14 @@ def _state_tensors(trainer):
 
 
 def profile_epoch(trainer, epoch):
-    """One epoch under torch.profiler: (wall s, kernel s, host-to-device copy
-    s) on the card; its busy share is kernels over wall."""
-    from torch.profiler import ProfilerActivity, profile
+    """One epoch under torch.profiler (`tools/profile_step.py`'s `profile`):
+    (wall s, kernel s, host-to-device copy s) on the card; its busy share is
+    kernels over wall."""
+    from video_rep_learning_tpu_torch.tools import profile_step
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        trainer.train_one_epoch(epoch)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    h2d = sum(e.self_device_time_total for e in events if "HtoD" in e.key) / 1e6
-    busy = sum(e.self_device_time_total for e in events) / 1e6 - h2d
-    return wall, busy, h2d
+    prof = profile_step.profile(lambda i: trainer.train_one_epoch(epoch), 1, "cuda")
+    h2d = sum(e.self_device_time_total for e in prof["events"] if "HtoD" in e.key) / 1e6
+    return prof["wall_s"], prof["busy_s"] - h2d, h2d
 
 
 def h2d_in_step_ms(trainer, batch, reps=3):
@@ -3914,6 +3902,275 @@ def phase_prefetch_and_sweeps(data_root, card):
     log(f"phase 18 in {time.time() - t0:.1f} s")
     return launches, nums
 
+# ---------------------------------------------------------------------------
+# 19. the tools that drive and inspect the port: bench.py's device steps and
+# loader-fed epochs, the step profilers, the FRAMES_PER_BATCH sweep, the LSTP
+# capture card vs CPU, the alignment and retrieval CLIs
+# ---------------------------------------------------------------------------
+
+BENCH_TIMED_STEPS = 4  # timed steps of each bench workload, after its 2 warm ones
+LSTP_FRAMES = 16  # frames of one val video for the LSTP capture, card vs CPU
+# the LSTP attention (softmax weights in [0, 1] over the 784 patch tokens)
+# after 12 ViT blocks in fp32 on both sides, TF32 off: the bound of the
+# unit-norm embeddings compared the same way (CARD_VS_CPU_TOL)
+LSTP_TOL = CARD_VS_CPU_TOL
+BENCH_SET = {"num_train": 8, "num_val": 2, "min_len": 260, "max_len": 330, "size": 256}
+
+
+def media_support():
+    """(mp4, matplotlib): whether `native/` builds here and encodes and
+    decodes an mp4 through `data/decode.py`, and whether matplotlib
+    imports; logged on one line."""
+    import importlib.util
+
+    from video_rep_learning_tpu_torch.data.decode import VideoReader, encode_video
+
+    frames = np.random.RandomState(SEED).randint(0, 256, (8, 64, 64, 3)).astype(np.uint8)
+    path = os.path.join(WORK, "probe.mp4")
+    try:
+        encode_video(path, frames)
+        reader = VideoReader(path)
+        try:
+            back = reader.read_all()
+        finally:
+            reader.close()
+        mp4 = back.shape == frames.shape
+        why = f"decoded {back.shape}" if not mp4 else ""
+    except (RuntimeError, OSError) as e:
+        mp4, why = False, str(e).splitlines()[0]
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"19: mp4 through native/ (build, encode, decode): "
+        f"{'yes' if mp4 else 'NO, ' + why}; matplotlib: "
+        f"{'yes' if mpl else 'NO (not installed: the visualizers render nothing)'}")
+    return mp4, mpl
+
+
+def bench_step_launches(cfg):
+    """One bench step's launches: #1 and #3 once an encoder layer, #12 once,
+    and a ViT's by its FRAMES_PER_BATCH chunks."""
+    layers = cfg.MODEL.EMBEDDER_MODEL.NUM_LAYERS
+    want = {"flash_attn_fwd": layers, "flash_attn_bwd": layers, "crop_photometric": 1}
+    if "vit" in cfg.MODEL.BASE_MODEL.NETWORK:
+        want.update(vit_launches(2 * cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.NUM_FRAMES,
+                                 cfg.MODEL.BASE_MODEL.FRAMES_PER_BATCH))
+    return want
+
+
+def _exact(what, launches, want):
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+    return got
+
+
+def phase19_bench_steps(card):
+    """19a: `bench._measure` on carl_cfg, mvf_cfg and k400_cfg for the card,
+    2 warm + BENCH_TIMED_STEPS timed steps each, with their exact launches,
+    clips/s and peak memory."""
+    from video_rep_learning_tpu_torch import bench
+
+    launches, nums = {}, {}
+    for name in ("carl", "mvf", "k400"):
+        cfg = bench.WORKLOADS[name]("cuda")
+        _reset_launches()
+        rate = []
+        peak = _peak_mib(lambda: rate.append(bench._measure(
+            cfg, BENCH_TIMED_STEPS, bench.raw_size("cuda"), "cuda")))
+        launches[f"bench {name}"] = _read_launches()
+        steps = 2 + BENCH_TIMED_STEPS
+        got = _exact(f"19a bench {name}", launches[f"bench {name}"],
+                     {k: n * steps for k, n in bench_step_launches(cfg).items()})
+        nums[name] = {"clips_per_s": rate[0], "peak_mib": peak}
+        log(f"19a bench {name} ({cfg.TRAIN.BATCH_SIZE} clip x 2 views x "
+            f"{cfg.TRAIN.NUM_FRAMES} frames, {cfg.MODEL.BASE_MODEL.NETWORK}, FRAMES_PER_BATCH "
+            f"{cfg.MODEL.BASE_MODEL.FRAMES_PER_BATCH}): {rate[0]:.4f} clips/s, peak "
+            f"{peak:.0f} MiB on {card}; launches in {steps} steps {json.dumps(got)}")
+        torch.cuda.empty_cache()
+    return launches, nums
+
+
+def phase19_loader_fed(card, mp4):
+    """19b: `bench._measure_loader_fed` of CARL with the decode cache off
+    and at 2048 MB, one untimed and one timed epoch over the bench's set
+    (mp4 where `native/` encodes here, else `.npy`), with its markers and
+    exact launches."""
+    from video_rep_learning_tpu_torch import bench
+    from video_rep_learning_tpu_torch.data.synthetic import make_dataset
+
+    fmt = "mp4" if mp4 else "npy"
+    data = os.path.join(WORK, f"bench_data_{fmt}")
+    t0 = time.time()
+    make_dataset(data, "pouring", fmt, **BENCH_SET)
+    log(f"19b: the bench's loader-fed set ({BENCH_SET['num_train']} train videos of "
+        f"{BENCH_SET['min_len']}-{BENCH_SET['max_len']} frames at 256 px, {fmt}) made in "
+        f"{time.time() - t0:.1f} s")
+    launches, nums = {}, {}
+    layers = bench.carl_cfg("cuda").MODEL.EMBEDDER_MODEL.NUM_LAYERS
+    steps = 2 * BENCH_SET["num_train"]  # 2 epochs of batch 1
+    for cache_mb in (0, 2048):
+        _reset_launches()
+        rate, markers = bench._measure_loader_fed(bench.carl_cfg("cuda"), data, cache_mb,
+                                                  timed_epochs=1, device="cuda")
+        key = f"loader-fed carl cache {cache_mb}"
+        launches[key] = _read_launches()
+        got = _exact(f"19b {key}", launches[key],
+                     {"flash_attn_fwd": layers * steps, "flash_attn_bwd": layers * steps,
+                      "crop_photometric": steps})
+        nums[f"cache_{cache_mb}"] = {"clips_per_s": rate, "markers": markers}
+        log(f"19b {key} MB ({fmt}): {rate:.4f} clips/s on {card}; markers (s a step) "
+            f"{json.dumps(markers)}; launches {json.dumps(got)}")
+        torch.cuda.empty_cache()
+    return launches, nums
+
+
+def phase19_profilers(card):
+    """19c: `tools/profile_step.py` on carl and mvf (2 steps each) and
+    `tools/profile_carl_budget.py --iters 2`; the profiles must see device
+    time, and every rung a device and a host time."""
+    from video_rep_learning_tpu_torch.tools import profile_carl_budget, profile_step
+
+    launches, nums = {}, {}
+    for name in ("carl", "mvf"):
+        _reset_launches()
+        prof = profile_step.main([name, "--steps", "2", "--out",
+                                  os.path.join(WORK, f"profile_step_{name}")])
+        launches[f"profile_step {name}"] = _read_launches()
+        if not prof["busy_s"] or prof["busy_s"] <= 0:
+            raise AssertionError(f"19c profile_step {name}: no device time")
+        nums[f"profile_step_{name}"] = {"ms_per_step": prof["wall_s"] / 2 * 1e3,
+                                        "busy_share": prof["busy_s"] / prof["wall_s"]}
+        torch.cuda.empty_cache()
+    _reset_launches()
+    times = profile_carl_budget.main(["--iters", "2"])
+    launches["profile_carl_budget"] = _read_launches()
+    if not all(d is not None and d > 0 and h > 0 for d, h in times.values()):
+        raise AssertionError(f"19c budget: a rung without its times {times}")
+    nums["budget_ms"] = {k: {"device": d, "host": h} for k, (d, h) in times.items()}
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
+def phase19_sweep(card):
+    """19d: `tools/sweep_frames_per_batch.py 120 240 --steps 4 --reps 1` on
+    CARL."""
+    from video_rep_learning_tpu_torch.tools import sweep_frames_per_batch
+
+    _reset_launches()
+    res = sweep_frames_per_batch.main(["120", "240", "--steps", "4", "--reps", "1"])
+    launches = _read_launches()
+    if not all(r > 0 for rs in res.values() for r in rs):
+        raise AssertionError(f"19d sweep: {res}")
+    torch.cuda.empty_cache()
+    return launches, {str(k): v for k, v in res.items()}
+
+
+def phase19_lstp(data_root, card, mpl):
+    """19e: `visualize_lstp`'s hook capture on the first LSTP_FRAMES frames
+    of a val video with the seeded pouring_mvf checkpoint in fp32 (USE_AMP
+    off, TF32 off), card vs CPU within LSTP_TOL, with exact ViT launches;
+    its warm time on the card; rendered where matplotlib is."""
+    from video_rep_learning_tpu_torch import evaluate as cli
+    from video_rep_learning_tpu_torch import visualize_lstp
+    from video_rep_learning_tpu_torch.models import build_model
+
+    cfg = cli.load_config(cli.parse_cli(
+        ["--cfg_file", MVF_CFG_FILE, "--logdir", os.path.join(WORK, "lstp_logs"),
+         "--opts", *smoke_opts(["USE_AMP", "False"])])[0])
+    cfg.PATH_TO_DATASET = os.path.join(data_root, cfg.PATH_TO_DATASET)
+    _, state = seeded_mvf_checkpoint(cfg)
+    item = next(iter(cli.build_eval_loaders(cfg, "val")[0]))
+    frames = item["video"][:LSTP_FRAMES]
+    att = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev)
+        model.load_state_dict(state)
+        if dev == "cuda":
+            visualize_lstp.capture_lstp_attention(model, frames, item["dims"],
+                                                  cfg.IMAGE_SIZE, dev)  # warm-up
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.time()
+        att[dev] = visualize_lstp.capture_lstp_attention(model, frames, item["dims"],
+                                                         cfg.IMAGE_SIZE, dev)
+    card_ms = (time.time() - t0) * 1e3
+    launches = _read_launches()
+    layers = cfg.MODEL.EMBEDDER_MODEL.NUM_LAYERS
+    want = dict(vit_launches(LSTP_FRAMES, cfg.MODEL.BASE_MODEL.FRAMES_PER_BATCH),
+                flash_attn_fwd=layers)
+    got = _exact("19e LSTP capture", launches, want)
+    err = float(np.abs(att["cuda"] - att["cpu"]).max())
+    ntok = model.spec.num_static + model.spec.num_dynamic
+    shape_ok = att["cuda"].shape == (LSTP_FRAMES, ntok, model.spec.vit_spec.grid ** 2)
+    log(f"19e LSTP capture (pouring_mvf, {LSTP_FRAMES} frames, fp32 ViT-B/8, hook on "
+        f"embed.pooling): attention {att['cuda'].shape}, card vs CPU max |diff| "
+        f"{err:.3e} (tol {LSTP_TOL:.0e}); {card_ms:.1f} ms warm on {card}; launches "
+        f"{json.dumps(got)}")
+    if not shape_ok or err > LSTP_TOL or not np.isfinite(att["cuda"]).all():
+        raise AssertionError("19e: the LSTP capture disagrees between card and CPU")
+    if mpl:
+        visualize_lstp.render_attention_video(frames, att["cuda"],
+                                              os.path.join(WORK, "lstp_card.mp4"))
+    else:
+        log("19e: rendering not run: matplotlib is not installed here")
+    del model
+    torch.cuda.empty_cache()
+    return launches, {"max_abs_err": err, "card_ms": card_ms}
+
+
+def phase19_visualizers(data_root, logdir, card, mpl):
+    """19f: `visualize_alignment` (DTW, 1 query vs 1 key) and
+    `visualize_retrieval` (top 5) on the card over the CARL training
+    phase's checkpoint in `logdir`; their files where matplotlib is, else
+    their compute half (embeddings, alignment, top-K) only."""
+    from video_rep_learning_tpu_torch import visualize_alignment as va
+    from video_rep_learning_tpu_torch import visualize_retrieval as vr
+
+    argv = ["--workdir", data_root, "--logdir", logdir, "--cfg_file", CFG_FILE,
+            "--device", "cuda", "--opts", "DATA.NUM_WORKERS", "4", "RNG_SEED", str(SEED)]
+    _reset_launches()
+    t0 = time.time()
+    if mpl:
+        outs = va.main(["--use_dtw", *argv]) + [vr.main(argv)]
+        if not all(os.path.getsize(o) > 0 for o in outs):
+            raise AssertionError(f"19f: empty outputs {outs}")
+        what = "wrote " + ", ".join(os.path.basename(o) for o in outs)
+    else:
+        _, _, _, ds = va.load_val_embeddings(argv, va.parser())
+        nns = va.align(ds["embs"][0], ds["embs"][1], True)
+        top = vr.retrieve(ds["embs"][0], np.concatenate(ds["embs"][1:]), 5)
+        if nns.shape != (ds["embs"][0].shape[0],) or top.shape[1] != 5:
+            raise AssertionError("19f: alignment or retrieval shapes")
+        what = "rendering not run: matplotlib is not installed here (aligned and retrieved)"
+    launches = _read_launches()
+    if launches["flash_attn_fwd"] <= 0:
+        raise AssertionError("19f: the visualizers' embeddings never launched #1")
+    log(f"19f alignment + retrieval CLIs on {card} in {time.time() - t0:.1f} s: {what}; "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tools_path(data_root, train_logdir, card):
+    """19: (a) bench device steps, (b) loader-fed, (c) profilers, (d) sweep,
+    (e) LSTP capture card vs CPU, (f) alignment and retrieval CLIs. Returns
+    (each path's launches, numbers)."""
+    t0 = time.time()
+    mp4, mpl = media_support()
+    launches, nums = {}, {"mp4": mp4, "matplotlib": mpl}
+    for key, fn in (("bench", lambda: phase19_bench_steps(card)),
+                    ("loader_fed", lambda: phase19_loader_fed(card, mp4)),
+                    ("profilers", lambda: phase19_profilers(card)),
+                    ("sweep", lambda: phase19_sweep(card)),
+                    ("lstp", lambda: phase19_lstp(data_root, card, mpl))):
+        got, nums[key] = fn()
+        launches.update(got if key in ("bench", "loader_fed", "profilers")
+                        else {key: got})
+        log(f"19 {key}: {time.time() - t0:.1f} s into phase 19")
+    launches["visualizers"] = phase19_visualizers(data_root, train_logdir, card, mpl)
+    log(f"phase 19 in {time.time() - t0:.1f} s")
+    return launches, nums
+
+
 JAX_OPS = "video_rep_learning_tpu/ops/"
 SOURCES = {  # name: (source under the port, the TPU kernel it replaces)
     "flash_attn_fwd": ("csrc/flash_attn_fwd.cu", JAX_OPS + "attention_pallas.py:79"),
@@ -4033,6 +4290,16 @@ def main():
                              f"{strays}")
     log("phase 18 paths: none of " + ", ".join(TOOL_ENTRIES) + " launched")
     log("phase 18 numbers: " + json.dumps(p18_nums))
+    torch.cuda.empty_cache()
+    p19_launches, p19_nums = phase_tools_path(data_root, os.path.join(WORK, "train_logs"),
+                                              card)
+    strays = {(path, k): n for path, counts in p19_launches.items()
+              for k, n in counts.items() if k in TOOL_ENTRIES and n}
+    if strays:
+        raise AssertionError(f"a phase 19 path launched a micro-benchmark kernel: "
+                             f"{strays}")
+    log("phase 19 paths: none of " + ", ".join(TOOL_ENTRIES) + " launched")
+    log("phase 19 numbers: " + json.dumps(p19_nums))
     # the kernels as built (PTXAS_KERNELS): registers, stack, spills; 13g's SASS
     for name, built in ptxas.items():
         entries[name]["ptxas"] = built
@@ -4070,6 +4337,7 @@ def main():
             "phase16_launches": {p: c[name] for p, c in new_launches.items()},
             "phase17_launches": {p: c[name] for p, c in ddp_paths.items()},
             "phase18_launches": {p: c[name] for p, c in p18_launches.items()},
+            "phase19_launches": {p: c[name] for p, c in p19_launches.items()},
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],

@@ -12,7 +12,10 @@ same model frozen up to block 1 of 2 under MODEL.REMAT (the back end
 trains, the front stays), the late-fusion ViT ablations' evaluation
 (`configs_mvf/ablate_dinoB8_{max,cls}.yml` on the small ViT), and the
 FineGym harness (`configs_mvf/fg99_mvf.yml` on a tiny gym99-format set:
-embedding pickles and the linear probe)."""
+embedding pickles and the linear probe). matplotlib is blocked as well: the
+bench (`bench.main --device cpu --device-only`: one JSON line), the LSTP
+hook capture on the MV-Former and the alignment (nearest neighbour and DTW)
+and retrieval top-K on its embeddings run without it."""
 
 import os
 import subprocess
@@ -26,7 +29,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import sys
-    BLOCKED = ("jax", "flax", "sklearn", "video_rep_learning_tpu")
+    BLOCKED = ("jax", "flax", "sklearn", "video_rep_learning_tpu", "matplotlib")
     for name in BLOCKED:
         sys.modules[name] = None  # any import of them raises ImportError
 
@@ -41,7 +44,11 @@ SCRIPT = textwrap.dedent("""
     from video_rep_learning_tpu_torch.train import Trainer
     from video_rep_learning_tpu_torch.tools import (  # noqa: F401
         bench_attn_variants, bench_eval, bench_host_pipeline, bench_int8_pallas,
-        bench_ln_matmul, bench_packed_attn, bench_vpu_bf16)
+        bench_ln_matmul, bench_packed_attn, bench_vpu_bf16, profile_carl_budget,
+        profile_step, sweep_frames_per_batch)
+    from video_rep_learning_tpu_torch import (  # noqa: F401
+        bench, make_job, read_results, visualize_alignment, visualize_lstp,
+        visualize_retrieval)
 
     torch.set_num_threads(1)
     cfg = get_cfg()
@@ -85,6 +92,9 @@ SCRIPT = textwrap.dedent("""
         prefetch_loss = float(trainer.train_step(host, dev, 0, it, 1e-3))
     assert np.isfinite(prefetch_loss) and "videos" not in host, prefetch_loss
     assert trainer.prefetcher is not None
+
+    bench_result = bench.main(["--device", "cpu", "--device-only"])
+    assert bench_result["value"] > 0 and bench_result["mvf_value"] > 0, bench_result
 
     from video_rep_learning_tpu_torch.config import load_yaml_into
     from video_rep_learning_tpu_torch.models import vit
@@ -136,6 +146,17 @@ SCRIPT = textwrap.dedent("""
     assert sum(e.shape[0] for e in flat["embs"]) > 0
     assert all(np.isfinite(e).all() for e in flat["embs"])
     mvf.EVAL.FLAT_EXTRACT = False
+    # the LSTP hook capture, then alignment and retrieval on the embeddings
+    item = next(iter(build_eval_loaders(mvf, "val")[0]))
+    att = visualize_lstp.capture_lstp_attention(model, item["video"][:5], item["dims"],
+                                                32, "cpu")
+    assert att.shape == (5, 3, 16) and np.allclose(att.sum(-1), 1.0, atol=1e-5)
+    assert not model.embed.pooling._forward_hooks
+    for use_dtw in (False, True):
+        nns = visualize_alignment.align(flat["embs"][0], flat["embs"][1], use_dtw)
+        assert nns.shape == (flat["embs"][0].shape[0],)
+    top = visualize_retrieval.retrieve(flat["embs"][0], np.concatenate(flat["embs"][1:]), 2)
+    assert top.shape == (flat["embs"][0].shape[0], 2)
 
     mvf.TRAIN.NUM_FRAMES = 4
     mvf_trainer = Trainer(mvf, no_eval=True, device="cpu")
@@ -220,7 +241,7 @@ SCRIPT = textwrap.dedent("""
                     and m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("NO_JAX_OK", metrics, tcc_metrics, mvf_metrics, mvf_loss, part_loss,
-          late_metrics, fg_accs)
+          late_metrics, fg_accs, bench_result)
 """)
 
 

@@ -372,7 +372,12 @@ class Kinetics400(VideoDataset):
                     len(self.entries))
 
     def _video_path(self, entry):
-        return os.path.join(self.cfg.PATH_TO_DATASET, self.split, entry["video_file"])
+        """`{split}/{youtube_id}_{start}_{end}.mp4`, or the `.npy` frame store
+        of that name where there is no mp4 (a synthetic set for a machine
+        without FFmpeg, `data/synthetic.py --format npy`)."""
+        path = os.path.join(self.cfg.PATH_TO_DATASET, self.split, entry["video_file"])
+        npy = os.path.splitext(path)[0] + ".npy"
+        return npy if not os.path.exists(path) and os.path.exists(npy) else path
 
     def get_ssl_item(self, rng, index):
         entry = self.entries[index]
